@@ -1,0 +1,437 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout on a machine with one CUDA GPU:
+
+    python3 chip_smoke.py
+
+It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
+csrc`` (nvcc, at first use), holds each against its plain PyTorch
+version at the shapes the paper's main path gives it, drives the main
+path — ``repro_torch.api.job(m, p).features("welch", "spl", "tol",
+"ltsa")`` over one 45-minute paper file for both paper parameter sets —
+and checks what comes out: float32 == int16 payload bitwise, resumed ==
+uninterrupted bitwise, agreement with ``scipy.signal.welch``, and launch
+counters showing the path went through the kernels.  Any failed check
+raises, so the script exits non-zero and never prints the ``ok`` line.
+
+Output, in order: the card (``nvidia-smi`` name and power limit), the
+build, one line per kernel check and per job, a ``{"kernels": [...]}``
+JSON line (per kernel: error, kernel / plain / library times and the
+least time the card could take, launches on the main path), and last
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
+reference package, and has no CPU mode: without a CUDA device it exits
+non-zero.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+FILE_SEC = 45 * 60        # one paper wav file
+SEED = 20190315
+WARMUP, REPS, ROUNDS = 3, 20, 5
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(f"chip_smoke: {what}")
+
+
+def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the f32 peak, whichever is larger.  Both count the
+    function's own work — each input read once, each output written
+    once, an FFT's operations for a DFT — not the kernel's algorithm."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def psd_flops(n: int, n_bins: int) -> float:
+    """One frame's one-sided PSD: window, a real FFT (~2.5 N log2 N),
+    |X|^2 and the scale or frame sum per bin."""
+    return n + 2.5 * n * math.log2(n) + 4 * n_bins
+
+
+def main() -> int:
+    if not (SRC / "repro_torch").is_dir():
+        raise SystemExit("chip_smoke.py runs from a checkout of the "
+                         "repository: src/repro_torch is missing")
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py measures the port on a CUDA GPU and "
+                         "has no CPU mode: torch.cuda.is_available() is "
+                         "False")
+
+    import scipy.signal
+
+    from repro_torch import api
+    from repro_torch.core import spectra
+    from repro_torch.core.manifest import DatasetManifest
+    from repro_torch.core.params import (PARAM_SET_1, PARAM_SET_2,
+                                         PCM_DECODE_SCALE)
+    from repro_torch.core.tol import band_matrix
+    from repro_torch.core.windows import make_window
+    from repro_torch.kernels import (_build, ct_rfft, framepsd, ops,
+                                     tol as tolk, welch as welchk)
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    lib = _build.library()
+    print(f"kernels built in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {lib.build_seconds}) -> {lib.path.name}")
+
+    # -- data: one 45-min file per set, int16 PCM + per-record scales --
+    def corpus(p, n_records):
+        n = p.record_size
+        pcm = np.empty((n_records, n), np.int16)
+        t = np.arange(n) / p.fs
+        for i in range(n_records):
+            rng = np.random.default_rng([SEED, i])
+            tone = 1000.0 * np.sin(2 * np.pi * (50 + 400 * rng.random()) * t)
+            x = rng.standard_normal(n) * 3000.0 + tone
+            pcm[i] = np.clip(np.rint(x), -32768, 32767).astype(np.int16)
+        gains = np.linspace(8.0, 12.0, n_records).astype(np.float32)
+        return pcm, (np.float32(PCM_DECODE_SCALE) * gains).astype(np.float32)
+
+    sets = {}
+    for name, p in (("set1", PARAM_SET_1), ("set2", PARAM_SET_2)):
+        n_rec = int(round(FILE_SEC / p.record_size_sec))
+        t0 = time.perf_counter()
+        pcm, scales = corpus(p, n_rec)
+        m = DatasetManifest(n_files=1, records_per_file=n_rec,
+                            record_size=p.record_size, fs=p.fs, seed=SEED)
+        sets[name] = (p, m, pcm, scales)
+        print(f"{name}: {n_rec} records x {p.record_size} samples made in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+    def decoded(pcm, scales, idx):
+        return pcm[idx].astype(np.float32) * scales[idx][:, None]
+
+    # -- phase 2: each kernel against its plain version ---------------------
+    def span_ms(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    spin_cycles = 10_000_000
+    cycles_per_ms = spin_cycles / span_ms(lambda: torch.cuda._sleep(
+        spin_cycles))
+
+    def time_ms(fn):
+        """(device ms, host ms) per call, medians over ROUNDS.
+
+        Host: wall time of REPS calls with no synchronize, over REPS —
+        what one call costs the host to enqueue.  Device: a spin on the
+        card holds the stream while the host enqueues REPS calls between
+        two events, so the calls run back to back and the span over REPS
+        is device time, not launch cost.  A call that synchronizes
+        itself (a pageable host-to-device copy) stays host-paced."""
+        for _ in range(WARMUP):
+            fn()
+        torch.cuda.synchronize()
+        dev, host = [], []
+        for _ in range(ROUNDS):
+            t0 = time.perf_counter()
+            for _ in range(REPS):
+                fn()
+            host.append((time.perf_counter() - t0) / REPS * 1e3)
+            torch.cuda.synchronize()
+            hold_ms = max(4.0 * REPS * host[-1], 1.0)
+            torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+
+            def calls():
+                for _ in range(REPS):
+                    fn()
+            dev.append(span_ms(calls) / REPS)
+        return statistics.median(dev), statistics.median(host)
+
+    def max_rel(a, b, floor):
+        a, b = a.double(), b.double()
+        return float(((a - b).abs() / (b.abs() + floor)).max())
+
+    report = []
+
+    def record(name, source, replaces, got, want, kernel, plain, library,
+               n_bytes, flops):
+        b_ms, b_by = bound_ms(n_bytes, flops)
+        (k_ms, k_host), (p_ms, p_host) = time_ms(kernel), time_ms(plain)
+        l_ms, l_host = (None, None) if library is None else time_ms(library)
+        report.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": None,
+            "max_abs_err": float((got.double() - want.double()).abs().max()),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms})
+        print(f"{name}: device ms={k_ms:.5f} plain_ms={p_ms:.5f} "
+              f"library_ms={l_ms} bound_ms={b_ms:.5f} ({b_by}, "
+              f"{b_ms / k_ms:.1%} of it)")
+        print(f"{name}: host ms per call (enqueue): kernel={k_host:.5f} "
+              f"plain={p_host:.5f} library={l_host}")
+
+    idx8 = np.arange(8)
+    # K1 welch_psd: set 1, one step of 8 records
+    p1, _m1, pcm1, sc1 = sets["set1"]
+    q1 = torch.as_tensor(pcm1[idx8], device=dev)
+    s1 = torch.as_tensor(sc1[idx8], device=dev)
+    x1 = torch.as_tensor(decoded(pcm1, sc1, idx8), device=dev)
+    k1 = framepsd.welch_psd(x1, p1)
+    k1_plain = framepsd.welch_psd_plain(x1, p1)
+    k1_q = framepsd.welch_psd(q1, p1, s1)
+    torch.cuda.synchronize()
+    err = max_rel(k1, k1_plain, 1e-9)
+    print(f"K1 welch_psd {tuple(x1.shape)} -> {tuple(k1.shape)}: max rel "
+          f"err {err:.3e} (tol 1e-4), int16 == float32 bitwise: "
+          f"{torch.equal(k1, k1_q)}")
+    check(err < 1e-4, "K1 disagrees with its plain version")
+    check(torch.equal(k1, k1_q), "K1 int16 call differs from float32 call")
+    w1 = make_window(p1.window, p1.window_size, device=dev)
+    sc1_bins = torch.as_tensor(framepsd._bin_scale(p1)[0], device=dev)
+    fpr1 = p1.frames_per_record
+    n1_bins = p1.n_bins
+    record("welch_psd", "src/repro_torch/kernels/csrc/framepsd.cu",
+           "src/repro/kernels/framepsd.py:239", k1, k1_plain,
+           lambda: framepsd.welch_psd(x1, p1),
+           lambda: framepsd.welch_psd_plain(x1, p1),
+           lambda: (torch.fft.rfft(
+               x1.unfold(-1, p1.window_size, p1.hop) * w1, n=p1.nfft)
+               .abs().square().mean(dim=-2) * sc1_bins),
+           n_bytes=(x1.numel() + k1.numel()) * 4,
+           flops=8 * fpr1 * psd_flops(p1.nfft, n1_bins))
+
+    # K2 ct_frame_psd: set 2, one step of 8 records = 640 frames
+    p2, _m2, pcm2, sc2 = sets["set2"]
+    x2 = torch.as_tensor(decoded(pcm2, sc2, idx8), device=dev)
+    q2 = torch.as_tensor(pcm2[idx8], device=dev)
+    fr2 = x2.unfold(-1, p2.window_size, p2.hop).reshape(-1, p2.window_size)
+    fq2 = q2.unfold(-1, p2.window_size, p2.hop).reshape(-1, p2.window_size)
+    fpr2 = p2.frames_per_record
+    fs2 = torch.as_tensor(np.repeat(sc2[idx8], fpr2), device=dev)
+    k2 = ct_rfft.ct_frame_psd(fr2, p2)
+    k2_plain = ct_rfft.ct_frame_psd_plain(fr2, p2)
+    k2_q = ct_rfft.ct_frame_psd(fq2, p2, scales=fs2)
+    torch.cuda.synchronize()
+    err = max_rel(k2, k2_plain, 1e-6)
+    print(f"K2 ct_frame_psd {tuple(fr2.shape)} -> {tuple(k2.shape)}: max "
+          f"rel err {err:.3e} (tol 1e-3, floor 1e-6), int16 == float32 "
+          f"bitwise: {torch.equal(k2, k2_q)}")
+    check(err < 1e-3, "K2 disagrees with its plain version")
+    check(torch.equal(k2, k2_q), "K2 int16 call differs from float32 call")
+    w2 = make_window(p2.window, p2.window_size, device=dev)
+    bscale2 = (spectra.onesided_weights(p2.nfft, device=dev)
+               * spectra.periodogram_scale(p2))
+    record("ct_frame_psd", "src/repro_torch/kernels/csrc/ct_rfft.cu",
+           "src/repro/kernels/ct_rfft.py:122", k2, k2_plain,
+           lambda: ct_rfft.ct_frame_psd(fr2, p2),
+           lambda: ct_rfft.ct_frame_psd_plain(fr2, p2),
+           lambda: (torch.fft.rfft(fr2 * w2, n=p2.nfft).abs().square()
+                    * bscale2),
+           n_bytes=(fr2.numel() + k2.numel()) * 4,
+           flops=fr2.shape[0] * psd_flops(p2.nfft, p2.n_bins))
+
+    # K3 welch_mean: the set-2 step's per-frame PSD, (8, 80, 2049)
+    fp3 = k2.reshape(8, fpr2, p2.n_bins)
+    k3 = welchk.welch_mean(fp3)
+    k3_plain = welchk.welch_mean_plain(fp3)
+    torch.cuda.synchronize()
+    err = max_rel(k3, k3_plain, 1e-9)
+    print(f"K3 welch_mean {tuple(fp3.shape)} -> {tuple(k3.shape)}: max rel "
+          f"err {err:.3e} (tol 1e-5)")
+    check(err < 1e-5, "K3 disagrees with its plain version")
+    record("welch_mean", "src/repro_torch/kernels/csrc/welch.cu",
+           "src/repro/kernels/welch.py:32", k3, k3_plain,
+           lambda: welchk.welch_mean(fp3),
+           lambda: welchk.welch_mean_plain(fp3),
+           lambda: torch.mean(fp3, dim=1),
+           n_bytes=(fp3.numel() + k3.numel()) * 4, flops=fp3.numel())
+
+    # K4 tol_levels: both sets' Welch PSDs; timed at set 2 (8, 2049)
+    for p, psd in ((p1, k1), (p2, k3)):
+        bm = torch.as_tensor(band_matrix(p), device=dev)
+        k4 = tolk.tol_levels(psd, bm, p)
+        k4_plain = tolk.tol_levels_plain(psd, bm, p)
+        torch.cuda.synchronize()
+        err = float((k4 - k4_plain).abs().max())
+        print(f"K4 tol_levels {tuple(psd.shape)} x {tuple(bm.shape)}: max "
+              f"abs err {err:.3e} dB (tol 1e-4)")
+        check(err < 1e-4, "K4 disagrees with its plain version")
+    nb, nbands = bm.shape
+    record("tol_levels", "src/repro_torch/kernels/csrc/tol.cu",
+           "src/repro/kernels/tol.py:29", k4, k4_plain,
+           lambda: tolk.tol_levels(k3, bm, p2),
+           lambda: tolk.tol_levels_plain(k3, bm, p2),
+           lambda: (10.0 * torch.log10(torch.clamp(
+               (k3 @ bm) * p2.df, min=1e-30)) + p2.gain_db),
+           n_bytes=(8 * nb + nb * nbands + 8 * nbands) * 4,
+           flops=2 * 8 * int(torch.count_nonzero(bm)) + 3 * 8 * nbands)
+
+    # -- phase 3: the main path ---------------------------------------------
+    counters = ops.launch_counters()
+    feats = ("welch", "spl", "tol", "ltsa")
+
+    def f32_reader(pcm, scales):
+        def read(idx):
+            idx = np.asarray(idx)
+            flat = idx.reshape(-1)
+            out = np.zeros((flat.size, pcm.shape[1]), np.float32)
+            live = flat < len(pcm)
+            out[live] = decoded(pcm, scales, flat[live])
+            return out.reshape(idx.shape + (pcm.shape[1],))
+        return read
+
+    def i16_reader(pcm):
+        def read(idx):
+            idx = np.asarray(idx)
+            flat = idx.reshape(-1)
+            out = np.zeros((flat.size, pcm.shape[1]), np.int16)
+            live = flat < len(pcm)
+            out[live] = pcm[flat[live]]
+            return out.reshape(idx.shape + (pcm.shape[1],))
+        return read
+
+    def i16_scales(scales):
+        return lambda idx: scales[np.minimum(np.asarray(idx),
+                                             len(scales) - 1)]
+
+    def build(name, payload, store=None, limit=None):
+        p, m, pcm, scales = sets[name]
+        if payload == "int16":
+            src = api.ReaderSource(i16_reader(pcm), payload_dtype="int16",
+                                   scales=i16_scales(scales))
+        else:
+            src = api.ReaderSource(f32_reader(pcm, scales))
+        win = 15 if name == "set1" else 90     # 15-minute LTSA panels
+        j = (api.job(m, p).features(*feats).window(records=win)
+             .source(src).device("cuda").limit(limit))
+        return j.to(store) if store is not None else j
+
+    def timed(label, name, j):
+        p, m = sets[name][:2]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = j.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = res.n_records
+        print(f"job {label}: {n} records in {dt:.3f} s, "
+              f"{n / dt:.2f} records/s, "
+              f"{n * p.record_size_sec / dt:.1f} x realtime")
+        return res
+
+    def same(a, b):
+        return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
+
+    def all_equal(ra, rb):
+        names = list(ra.features) + list(ra.epoch) + list(ra.windows)
+        return all(same(ra[k], rb[k]) for k in names)
+
+    expected = {"set1": {"welch_psd", "tol_levels"},
+                "set2": {"ct_frame_psd", "welch_mean", "tol_levels"}}
+    launches = {c: 0 for c in counters}
+    results = {}
+    for name in ("set1", "set2"):
+        p, m, pcm, scales = sets[name]
+        build(name, "float32", limit=1).run()          # warm-up step
+        for c in counters.values():
+            c.reset()
+        res = timed(f"{name} float32", name, build(name, "float32"))
+        seen = {c: counters[c].count for c in counters}
+        print(f"{name} launches: {seen}")
+        for c, n in seen.items():
+            launches[c] += n
+            check((n > 0) == (c in expected[name]),
+                  f"{name} launched {c} {n} times")
+        results[name] = res
+
+        n_bins = p.n_bins
+        check(res["welch"].shape == (m.n_records, n_bins)
+              and res["ltsa"].shape == (3, n_bins)
+              and res["mean_welch"].shape == (n_bins,),
+              f"{name} output shapes")
+        for k in ("welch", "spl", "tol", "ltsa", "mean_welch"):
+            check(bool(np.isfinite(res[k]).all()), f"{name} {k} not finite")
+
+        for c in counters.values():
+            c.reset()
+        res_q = timed(f"{name} int16", name, build(name, "int16"))
+        check(all(counters[c].count > 0 for c in expected[name]),
+              f"{name} int16 run missed a kernel")
+        check(all_equal(res, res_q), f"{name} int16 != float32 bitwise")
+        print(f"{name}: int16 payload == float32 payload bitwise")
+
+        (ROOT / "build").mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            build(name, "float32", store=d, limit=2).run()
+            j = build(name, "float32", store=d)
+            check(j.resume_step() == 2, f"{name} store did not commit 2 steps")
+            res_r = j.run()
+            check(all_equal(res, res_r),
+                  f"{name} resumed run != uninterrupted run bitwise")
+        print(f"{name}: resumed (limit 2 + rerun) == uninterrupted bitwise")
+
+        tol = 1e-4 if name == "set1" else 1e-3
+        floor = 1e-9 if name == "set1" else 1e-6
+        for i in range(2):
+            x64 = decoded(pcm, scales, np.array([i]))[0].astype(np.float64)
+            _f, want = scipy.signal.welch(
+                x64, fs=p.fs, window=p.window, nperseg=p.window_size,
+                noverlap=p.window_overlap, nfft=p.nfft, detrend=False,
+                scaling="density", return_onesided=True)
+            got = res["welch"][i].astype(np.float64)
+            err = float(np.max(np.abs(got - want) / (np.abs(want) + floor)))
+            print(f"{name} record {i} vs scipy.signal.welch (float64): max "
+                  f"rel err {err:.3e} (tol {tol:g})")
+            check(err < tol, f"{name} record {i} disagrees with scipy")
+
+    p, m = sets["set1"][:2]
+    res = timed("set1 device synthesis, default entry point", "set1",
+                api.job(m, p))
+    check(res["welch"].shape == (m.n_records, p.n_bins)
+          and bool(np.isfinite(res["welch"]).all())
+          and bool(np.isfinite(res["tol"]).all()),
+          "default entry point output")
+
+    for r in report:
+        r["launches"] = launches[r["name"]]
+    print(json.dumps({"kernels": report}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

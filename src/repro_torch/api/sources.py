@@ -1,0 +1,186 @@
+"""Record sources — where waveforms come from.
+
+Two modes behind one interface:
+
+  * **device-synthesized** (:class:`SynthSource`): the step receives
+    record *indices* and regenerates the waveforms on the job's device
+    from the manifest seed — any record can be recomputed anywhere, with
+    no host IO;
+  * **host-fed** (:class:`ReaderSource`): the driver fetches
+    ``(n_shards, chunk, record_size)`` waveforms on the host and ships
+    them to the device.
+
+Host-fed sources carry a **payload dtype**: ``"float32"`` (decoded
+waveforms, the default) or ``"int16"`` (raw PCM: half the host->device
+bytes; the per-record float32 decode-scale sidecar from
+:meth:`Source.scales` rides along and the kernels dequantize as they
+load, bitwise-identically).  Wav files and the pipelined prefetcher come
+with later slices.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Callable, Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.core.manifest import DatasetManifest, ShardPlan
+from repro_torch.core.params import DepamParams, PCM_DECODE_SCALE
+
+
+def _record_seed(seed: int, idx: int) -> int:
+    """A 63-bit generator seed per (manifest seed, record index)."""
+    state = np.random.SeedSequence([int(seed), int(idx)]).generate_state(
+        1, np.uint64)[0]
+    return int(state >> np.uint64(1))
+
+
+def synth_record(idx: int, m: DatasetManifest,
+                 device: str | torch.device) -> torch.Tensor:
+    """Deterministic synthetic PAM record for a global record index:
+    noise + a ship-like tonal + a burst of clicks, drawn from a
+    ``torch.Generator`` seeded per ``(m.seed, idx)`` on ``device``.
+
+    The same kind of record as the reference's synthesizer, not the same
+    bits (that one draws from ``jax.random``).  (record_size,) float32.
+    """
+    device = torch.device(device)
+    g = torch.Generator(device=device)
+    g.manual_seed(_record_seed(m.seed, idx))
+    t = torch.arange(m.record_size, dtype=torch.float32,
+                     device=device) / m.fs
+    noise = torch.randn(m.record_size, generator=g, dtype=torch.float32,
+                        device=device)
+    u = torch.rand(2, generator=g, dtype=torch.float32, device=device)
+    tone_f = 50.0 + 400.0 * u[0]
+    tone = 0.3 * torch.sin(2 * torch.pi * tone_f * t)
+    click_phase = u[1] * 0.9
+    clicks = 2.0 * torch.exp(-((t / t[-1] - click_phase) ** 2) * 4e5) \
+        * torch.sin(2 * torch.pi * 9000.0 * t)
+    return noise + tone + clicks
+
+
+class Source:
+    """Base class.  ``device_synth`` sources hand indices to the step
+    (which regenerates records on the device); host-fed sources
+    implement ``fetch``."""
+
+    device_synth: bool = False
+    payload_dtype: str = "float32"
+
+    def bind(self, m: DatasetManifest, p: DepamParams) -> "Source":
+        """Late-bind the manifest/params at job start; returns self."""
+        return self
+
+    def with_payload(self, dtype: str) -> "Source":
+        """Request a payload transport dtype (``"float32"``/``"int16"``);
+        the base accepts only the dtype the source already produces."""
+        if dtype == self.payload_dtype:
+            return self
+        raise ValueError(
+            f"{type(self).__name__} cannot ship {dtype!r} payloads "
+            f"(it produces {self.payload_dtype!r}; device-synthesized "
+            f"sources ship int32 indices and have no host payload)")
+
+    def fetch(self, indices: np.ndarray) -> np.ndarray:
+        """Global record indices -> waveforms of shape
+        ``indices.shape + (record_size,)`` (zeros for padding slots), in
+        ``payload_dtype``.  Pure per index: any index shape, any order."""
+        raise NotImplementedError
+
+    def scales(self, indices: np.ndarray) -> np.ndarray:
+        """Per-record float32 decode-scale sidecar for int16 payloads
+        (PCM full scale x calibration gain, fused on the host); the
+        default is the plain full-scale factor."""
+        return np.full(np.asarray(indices).shape, PCM_DECODE_SCALE,
+                       np.float32)
+
+    def stream(self, plan: ShardPlan, start: int,
+               stop: int) -> Iterator[np.ndarray]:
+        """Yield one payload per plan step in [start, stop), in order."""
+        for step in range(start, stop):
+            yield self.fetch(plan.step_indices(step))
+
+    def close(self) -> None:
+        """Release IO resources; called by the engine when the job ends.
+        Safe to call twice."""
+
+
+class SynthSource(Source):
+    """On-device synthesis from the manifest seed (no host IO)."""
+
+    device_synth = True
+
+
+class ReaderSource(Source):
+    """Any host callback ``indices -> waveforms``, pure per record.
+
+    ``payload_dtype="int16"`` declares that the callback returns raw
+    ``<i2`` PCM; ``scales`` may then supply the per-record decode-scale
+    sidecar (``indices -> float32``), else the callback's own
+    ``scales_for`` when it has one, else the plain full-scale decode.
+    A float-returning callback on the int16 path is an error — silent
+    requantization would corrupt the data.
+    """
+
+    def __init__(self, reader: Callable[[np.ndarray], np.ndarray],
+                 payload_dtype: str = "float32",
+                 scales: Callable[[np.ndarray], np.ndarray] | None = None):
+        self.reader = reader
+        self.payload_dtype = payload_dtype
+        self._scales = scales
+
+    def with_payload(self, dtype: str) -> "ReaderSource":
+        if dtype == self.payload_dtype:
+            return self
+        if self.payload_dtype == "int16":
+            # casting PCM to float32 without the decode scale would be
+            # silently 32767x off — refuse instead
+            raise ValueError(
+                f"{type(self).__name__} wraps a raw-int16 reader and "
+                f"cannot ship {dtype!r} payloads; wrap a decoding "
+                f"reader instead")
+        new = copy.copy(self)
+        new.payload_dtype = dtype
+        return new
+
+    def fetch(self, indices: np.ndarray) -> np.ndarray:
+        out = np.asarray(self.reader(indices))
+        want = np.int16 if self.payload_dtype == "int16" else np.float32
+        if out.dtype == want:
+            return out
+        if want == np.int16:
+            raise TypeError(
+                f"reader returned {out.dtype} but the source ships raw "
+                f"int16 PCM; requantizing floats would corrupt the data "
+                f"— return '<i2' arrays")
+        if out.dtype == np.int16:
+            raise TypeError(
+                "reader returned raw int16 PCM on the float32 payload "
+                "path; casting it would skip the decode scale (32767x "
+                "amplitude error) — declare payload_dtype='int16' (or "
+                ".payload('int16') on the job) to ship PCM, or have the "
+                "reader decode to float32")
+        return out.astype(np.float32)
+
+    def scales(self, indices: np.ndarray) -> np.ndarray:
+        if self._scales is not None:
+            return np.asarray(self._scales(indices), np.float32)
+        if hasattr(self.reader, "scales_for"):
+            return np.asarray(self.reader.scales_for(indices), np.float32)
+        return super().scales(indices)
+
+
+def as_source(src) -> Source:
+    """Normalize a user-supplied source: ``None`` -> synthesis, a
+    callable -> ``ReaderSource``, a ``Source`` -> itself."""
+    if src is None:
+        return SynthSource()
+    if isinstance(src, Source):
+        return src
+    if callable(src):
+        return ReaderSource(src)
+    raise TypeError(f"cannot interpret {type(src).__name__} as a Source "
+                    f"(wav directories come with WavSource, not yet "
+                    f"ported)")

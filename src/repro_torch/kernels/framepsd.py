@@ -1,0 +1,130 @@
+"""K1: fused per-record Welch PSD (direct DFT form), frames never stored.
+
+For the small analysis windows of paper set 1 (nfft = window = 256,
+hop 128) the one-sided real DFT is a direct product with window-folded
+cos/sin matrices, so the whole chain
+
+    frames -> window -> rfft -> |.|^2 -> density scale -> frame mean
+
+runs in one kernel and the per-frame spectra never reach device
+memory.  Replaces the TPU kernel ``src/repro/kernels/framepsd.py:239``
+(``welch_psd``); the CUDA source (``csrc/framepsd.cu``) says what bounds
+it on the card and how its design answers.  The per-frame variant
+(``frame_psd``, the spectrogram) comes with the percentiles/spd slice.
+
+Raw int16 PCM is accepted (dtype drives the dispatch) with a per-record
+decode scale: the kernel converts and scales the samples as it stages
+them, before any product — the host decode's exact rounding, so the
+int16 and float32 calls give the same bits.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.core.spectra import (frame_signal, np_onesided_weights,
+                                      periodogram_scale)
+from repro_torch.core.windows import np_window
+from . import _build
+from .common import (LaunchCounter, check_cuda, decode_scales, dequantize,
+                     dft_matrices)
+
+LAUNCHES = LaunchCounter("welch_psd")
+
+
+def _fold_matrices(p, dtype=np.float32):
+    """Split window-folded DFT matrices by hop phase: (m, hop, n_bins)."""
+    w = np_window(p.window, p.window_size)
+    c, s = dft_matrices(p.window_size, p.nfft, w, dtype=np.float64)
+    m = p.window_size // p.hop
+    c = c.reshape(m, p.hop, p.n_bins).astype(dtype)
+    s = s.reshape(m, p.hop, p.n_bins).astype(dtype)
+    return c, s
+
+
+def _bin_scale(p, extra: float = 1.0, dtype=np.float32) -> np.ndarray:
+    """Combined one-sided weight * density scale (* extra), (1, n_bins)."""
+    w = np_onesided_weights(p.nfft)
+    return (w * periodogram_scale(p) * extra).astype(dtype)[None, :]
+
+
+def welch_psd_plain(records: torch.Tensor, p,
+                    scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version: each frame's window-length dot with the
+    folded DFT matrices, |.|^2, summed over frames, one scale."""
+    x = dequantize(records, scales) if records.dtype == torch.int16 \
+        else records.to(torch.float32)
+    c, s = _fold_matrices(p)
+    c = torch.as_tensor(c.reshape(p.window_size, p.n_bins), device=x.device)
+    s = torch.as_tensor(s.reshape(p.window_size, p.n_bins), device=x.device)
+    frames = frame_signal(x, p.window_size, p.hop)
+    re = frames @ c
+    im = frames @ s
+    total = (re * re + im * im).sum(dim=-2)
+    fpr = frames.shape[-2]
+    return total * torch.as_tensor(_bin_scale(p, 1.0 / fpr)[0],
+                                   device=x.device)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_constants(p, fpr: int, device: str):
+    """Folded DFT matrices zero-padded to whole warps of bins, and the
+    per-bin scale, on the device (built once per configuration)."""
+    c, s = _fold_matrices(p)
+    cols = -(-p.n_bins // 32) * 32
+    pad = ((0, 0), (0, cols - p.n_bins))
+    c = np.pad(c.reshape(p.window_size, p.n_bins), pad)
+    s = np.pad(s.reshape(p.window_size, p.n_bins), pad)
+    scale = _bin_scale(p, extra=1.0 / fpr)[0]
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                 for a in (c, s, scale))
+
+
+def welch_psd(records: torch.Tensor, p,
+              scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-record Welch PSD, (n_records, record_size) -> (n_records,
+    n_bins).  ``records`` may be raw int16 PCM (``scales``: per-record
+    decode scales, (n_records,); None = plain full-scale decode)."""
+    if records.device.type == "cpu":
+        return welch_psd_plain(records, p, scales)
+    check_cuda(records, "records", (torch.float32, torch.int16), 2)
+    if p.window_size % p.hop:
+        raise ValueError("the fused Welch kernel requires hop | window_size")
+    if p.n_bins > 9 * 32:
+        raise ValueError(f"the fused Welch kernel takes at most 288 bins "
+                         f"(nfft <= 574), got {p.n_bins}")
+    if records.stride(1) != 1:
+        records = records.contiguous()
+    n_rec, n = records.shape
+    fpr = (n - p.window_size) // p.hop + 1
+    if fpr < 1:
+        raise ValueError(f"records of {n} samples hold no frame of "
+                         f"{p.window_size}")
+    dev = records.device
+    c, s, scale = _device_constants(p, fpr, str(dev))
+    block = _build.function("depam_welch_psd_block_frames", _build.I)(
+        p.n_bins)
+    n_chunks = -(-fpr // block)
+    partial = torch.empty((n_rec, n_chunks, c.shape[1]), dtype=torch.float32,
+                          device=dev)
+    out = torch.empty((n_rec, p.n_bins), dtype=torch.float32, device=dev)
+    tail = (c.data_ptr(), s.data_ptr(), scale.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), n_rec, fpr, p.window_size, p.hop, p.n_bins)
+    tail_types = (_build.P,) * 5 + (_build.I,) * 5 + (_build.P,)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if records.dtype == torch.int16:
+            sq = decode_scales(scales, n_rec, dev)
+            fn = _build.function("depam_welch_psd_i16", _build.P, _build.L,
+                                 _build.L, _build.P, *tail_types)
+            err = fn(records.data_ptr(), records.stride(0), n,
+                     sq.data_ptr(), *tail, stream)
+        else:
+            fn = _build.function("depam_welch_psd_f32", _build.P, _build.L,
+                                 _build.L, *tail_types)
+            err = fn(records.data_ptr(), records.stride(0), n, *tail, stream)
+    _build.check(err, "welch_psd")
+    LAUNCHES.hit()
+    return out

@@ -1,0 +1,90 @@
+"""Public entry points for the DEPAM kernels, with dispatch.
+
+``psd_backend`` picks the kernel for a parameter set, by the reference's
+rule:
+  * direct   — fused frame+window+DFT Welch (framepsd), nfft <= 512 and
+               hop | window_size.  Paper set 1.
+  * ct       — two-stage Cooley-Tukey (ct_rfft) then the frame mean
+               (welch), large power-of-two nfft.  Paper set 2.
+  * xla      — the plain ``core.spectra`` path (torch.fft) for anything
+               else (the name is the reference's).
+
+Every entry point takes float32 or raw int16 PCM (with the per-record
+``scales`` sidecar): the kernels dequantize as they load, the plain path
+dequantizes first, all bitwise-identical to feeding host-decoded float32.
+On a CUDA tensor the kernels launch; on a CPU tensor each kernel module
+runs its plain PyTorch version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import spectra
+from . import common, ct_rfft, framepsd, tol as tol_kernel, \
+    welch as welch_kernel
+
+
+def psd_backend(p) -> str:
+    if p.nfft <= 512 and p.window_size % p.hop == 0:
+        return "direct"
+    if p.nfft >= 1024 and (p.nfft & (p.nfft - 1)) == 0:
+        return "ct"
+    return "xla"
+
+
+def _frame_scales(scales, lead: tuple[int, ...], nf: int, device):
+    """Per-record decode scales -> one per flattened frame (or None)."""
+    if scales is None:
+        return None
+    s = torch.as_tensor(scales, dtype=torch.float32, device=device)
+    return s[..., None].expand(lead + (nf,)).reshape(-1)
+
+
+def frame_psd(x: torch.Tensor, p, backend: str | None = None,
+              scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-frame PSD. x: (n_samples,) or (n_records, record_size),
+    float32 or raw int16 PCM (+ per-record ``scales`` sidecar)."""
+    backend = backend or psd_backend(p)
+    quantized = x.dtype == torch.int16
+    if backend == "direct":
+        raise NotImplementedError(
+            "the per-frame direct kernel (framepsd.frame_psd, the "
+            "spectrogram) is not ported yet: ROADMAP.md queue A 'Per-frame "
+            "products' / queue B item 5")
+    if backend == "ct":
+        frames = spectra.frame_signal(x, p.window_size, p.hop)
+        shape = frames.shape
+        sf = _frame_scales(scales, tuple(shape[:-2]), shape[-2], x.device) \
+            if quantized else None
+        out = ct_rfft.ct_frame_psd(frames.reshape(-1, p.window_size), p,
+                                   scales=sf)
+        return out.reshape(*shape[:-1], p.n_bins)
+    if quantized:
+        x = common.dequantize(x, scales)
+    return spectra.frame_psd(x, p)
+
+
+def welch_psd(records: torch.Tensor, p, backend: str | None = None,
+              scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-record Welch PSD. records: (n_records, record_size),
+    float32 or raw int16 PCM (+ per-record ``scales`` sidecar)."""
+    backend = backend or psd_backend(p)
+    if backend == "direct":
+        return framepsd.welch_psd(records, p, scales=scales)
+    if backend == "ct":
+        fp = frame_psd(records, p, backend="ct", scales=scales)
+        return welch_kernel.welch_mean(fp)
+    if records.dtype == torch.int16:
+        records = common.dequantize(records, scales)
+    return spectra.welch_psd(records, p)
+
+
+def tol_levels(psd: torch.Tensor, band_matrix: torch.Tensor,
+               p) -> torch.Tensor:
+    return tol_kernel.tol_levels(psd, band_matrix, p)
+
+
+def launch_counters() -> dict[str, "common.LaunchCounter"]:
+    """Every kernel's launch counter, by kernel name."""
+    return {c.name: c for c in (framepsd.LAUNCHES, ct_rfft.LAUNCHES,
+                                welch_kernel.LAUNCHES, tol_kernel.LAUNCHES)}

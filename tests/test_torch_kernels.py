@@ -1,0 +1,251 @@
+"""The port's kernel modules against the reference's Pallas kernels.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; those
+are held against the JAX kernels in interpret mode at the shapes and
+tolerances of tests/test_kernels.py, in float32 and int16.  The CUDA
+kernels themselves run only on the card: the ``cuda``-marked cases
+compare each with its plain version there and skip elsewhere
+(``python -m pytest -m cuda tests/test_torch_kernels.py`` on the GPU;
+chip_smoke.py does the same at the main path's shapes).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import tol as jtol
+from repro.core.params import DepamParams as JParams
+from repro.kernels import ct_rfft as jct, framepsd as jfp, ops as jops
+from repro.kernels import ref as jref, tol as jtolk, welch as jwelch
+from repro_torch.core.params import DepamParams, PCM_DECODE_SCALE
+from repro_torch.core.tol import band_matrix
+from repro_torch.kernels import (common, ct_rfft, framepsd, ops, ref,
+                                 tol as tolk, welch)
+
+
+def _p(nfft, ws, ov, n_frames=10, window="hamming"):
+    hop = ws - ov
+    sec = ((n_frames - 1) * hop + ws) / 32768.0
+    kw = dict(nfft=nfft, window_size=ws, window_overlap=ov,
+              record_size_sec=sec, window=window)
+    return DepamParams(**kw), JParams(**kw)
+
+
+def _maxrel(a, b, floor):
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / (np.abs(b) + floor)))
+
+
+def _pcm(rng, shape):
+    q = np.clip(np.rint(rng.standard_normal(shape) * 3000), -32768, 32767)
+    return q.astype(np.int16)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the hand-written kernels have no "
+                    "CPU or interpret mode")
+    return torch.device("cuda")
+
+
+class TestCommon:
+    def test_dequantize_bitwise_host_decode(self):
+        rng = np.random.default_rng(3)
+        q = _pcm(rng, (4, 1000))
+        scales = (PCM_DECODE_SCALE
+                  * rng.uniform(0.5, 2.0, 4)).astype(np.float32)
+        got = common.dequantize(torch.as_tensor(q), torch.as_tensor(scales))
+        assert np.array_equal(got.numpy(),
+                              q.astype(np.float32) * scales[:, None])
+        plain = common.dequantize(torch.as_tensor(q))
+        assert np.array_equal(plain.numpy(),
+                              q.astype(np.float32) * PCM_DECODE_SCALE)
+
+    def test_dft_matrices_fold_the_window(self):
+        w = np.hanning(16)
+        c, s = common.dft_matrices(16, 32, w, dtype=np.float64)
+        f = np.random.default_rng(0).standard_normal(16)
+        spec = np.fft.rfft(w * f, n=32)
+        assert np.allclose(f @ c, spec.real) and np.allclose(f @ s,
+                                                              spec.imag)
+
+    def test_psd_backend(self):
+        assert ops.psd_backend(_p(256, 256, 128)[0]) == "direct"
+        assert ops.psd_backend(_p(4096, 4096, 0)[0]) == "ct"
+        assert ops.psd_backend(_p(768, 384, 100)[0]) == "xla"
+        for args in ((256, 256, 128), (4096, 4096, 0), (768, 384, 100),
+                     (512, 384, 288)):
+            assert ops.psd_backend(_p(*args)[0]) == \
+                jops.psd_backend(_p(*args)[1])
+
+
+class TestWelchPsd:
+    """K1 plain version vs the Pallas fused Welch (interpret mode)."""
+
+    @pytest.mark.parametrize("nfft,ws,ov,nrec,nf", [
+        (256, 256, 128, 4, 20), (128, 128, 0, 3, 20), (256, 256, 192, 2, 20),
+        (128, 128, 64, 2, 50),
+    ])
+    def test_f32_and_int16(self, nfft, ws, ov, nrec, nf):
+        p, jp = _p(nfft, ws, ov, n_frames=nf)
+        rng = np.random.default_rng(11)
+        x = rng.standard_normal((nrec, p.record_size)).astype(np.float32)
+        got = framepsd.welch_psd(torch.as_tensor(x), p)
+        want = jfp.welch_psd(jnp.asarray(x), jp, interpret=True)
+        assert got.shape == (nrec, p.n_bins)
+        assert _maxrel(got, want, 1e-9) < 1e-4
+        q = _pcm(rng, (nrec, p.record_size))
+        sc = (PCM_DECODE_SCALE * np.linspace(0.5, 2, nrec)).astype(
+            np.float32)
+        got_q = framepsd.welch_psd(torch.as_tensor(q), p, torch.as_tensor(sc))
+        host = framepsd.welch_psd(
+            torch.as_tensor(q.astype(np.float32) * sc[:, None]), p)
+        assert torch.equal(got_q, host)
+        want_q = jfp.welch_psd(jnp.asarray(q), jp, interpret=True,
+                               scales=jnp.asarray(sc))
+        assert _maxrel(got_q, want_q, 1e-9) < 1e-4
+
+    def test_fold_and_scale_match_reference(self):
+        p, jp = _p(256, 256, 128)
+        for a, b in zip(framepsd._fold_matrices(p), jfp._fold_matrices(jp)):
+            assert np.array_equal(a, b)
+        assert np.array_equal(framepsd._bin_scale(p, 0.25),
+                              jfp._bin_scale(jp, 0.25))
+
+
+class TestCooleyTukey:
+    """K2 plain version vs the Pallas CT kernel (interpret mode)."""
+
+    @pytest.mark.parametrize("nfft,n1", [
+        (4096, 64), (4096, 32), (1024, 32), (256, 16),
+    ])
+    def test_f32_and_int16(self, nfft, n1):
+        p, jp = _p(nfft, nfft, 0, n_frames=3)
+        rng = np.random.default_rng(nfft)
+        frames = rng.standard_normal((5, nfft)).astype(np.float32)
+        got = ct_rfft.ct_frame_psd(torch.as_tensor(frames), p, n1=n1)
+        want = jct.ct_frame_psd(jnp.asarray(frames), jp, n1=n1,
+                                interpret=True)
+        assert got.shape == tuple(want.shape)
+        assert _maxrel(got, want, 1e-6) < 1e-3
+        q = _pcm(rng, (5, nfft))
+        sc = (PCM_DECODE_SCALE * np.linspace(1, 3, 5)).astype(np.float32)
+        got_q = ct_rfft.ct_frame_psd(torch.as_tensor(q), p, n1=n1,
+                                     scales=torch.as_tensor(sc))
+        host = ct_rfft.ct_frame_psd(
+            torch.as_tensor(q.astype(np.float32) * sc[:, None]), p, n1=n1)
+        assert torch.equal(got_q, host)
+        want_q = jct.ct_frame_psd(jnp.asarray(q), jp, n1=n1, interpret=True,
+                                  scales=jnp.asarray(sc))
+        assert _maxrel(got_q, want_q, 1e-6) < 1e-3
+
+    def test_zero_padded_window(self):
+        p, jp = _p(1024, 768, 0, n_frames=2)
+        frames = np.random.default_rng(5).standard_normal(
+            (3, 768)).astype(np.float32)
+        got = ct_rfft.ct_frame_psd(torch.as_tensor(frames), p, n1=32)
+        assert _maxrel(got, jref.ct_frame_psd(jnp.asarray(frames), jp),
+                       1e-6) < 1e-3
+        assert _maxrel(got, ref.ct_frame_psd(torch.as_tensor(frames), p),
+                       1e-6) < 1e-3
+
+    def test_constants_match_reference(self):
+        p, jp = _p(4096, 4096, 0)
+        for a, b in zip(ct_rfft._constants(p, 64, 64),
+                        jct._constants(jp, 64, 64)):
+            assert np.array_equal(a, b)
+
+
+class TestWelchMeanAndTol:
+    def test_welch_mean(self):
+        fp = np.random.default_rng(17).random((5, 33, 129)).astype(
+            np.float32)
+        got = welch.welch_mean(torch.as_tensor(fp))
+        want = jwelch.welch_mean(jnp.asarray(fp), block_records=2,
+                                 chunk_frames=8, interpret=True)
+        assert _maxrel(got, want, 1e-9) < 1e-5
+        assert _maxrel(got, ref.welch_mean(torch.as_tensor(fp)), 1e-9) < 1e-5
+
+    @pytest.mark.parametrize("args", [(256, 256, 128), (4096, 4096, 0)])
+    def test_tol_kernel(self, args):
+        p, jp = _p(*args)
+        m = band_matrix(p)
+        psd = (np.random.default_rng(19).random((7, p.n_bins))
+               + 1e-6).astype(np.float32)
+        got = tolk.tol_levels(torch.as_tensor(psd), torch.as_tensor(m), p)
+        want = jtolk.tol_levels(jnp.asarray(psd), jnp.asarray(
+            jtol.band_matrix(jp)), jp, block_records=4, interpret=True)
+        assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < 1e-4
+
+
+class TestOps:
+    @pytest.mark.parametrize("args,tol", [
+        ((256, 256, 128), 1e-4),      # direct
+        ((1024, 1024, 0), 1e-3),      # ct + welch_mean
+        ((768, 384, 100), 1e-4),      # plain spectra path
+    ])
+    @pytest.mark.parametrize("payload", ["float32", "int16"])
+    def test_welch_psd_every_backend(self, args, tol, payload):
+        p, jp = _p(*args, n_frames=6)
+        rng = np.random.default_rng(23)
+        q = _pcm(rng, (3, p.record_size))
+        sc = (PCM_DECODE_SCALE * np.array([1, 2, 3])).astype(np.float32)
+        if payload == "int16":
+            got = ops.welch_psd(torch.as_tensor(q), p,
+                                scales=torch.as_tensor(sc))
+            want = jops.welch_psd(jnp.asarray(q), jp, scales=jnp.asarray(sc))
+        else:
+            x = q.astype(np.float32) * sc[:, None]
+            got = ops.welch_psd(torch.as_tensor(x), p)
+            want = jops.welch_psd(jnp.asarray(x), jp)
+        assert _maxrel(got, want, 1e-9) < tol
+
+    def test_frame_psd_direct_is_not_ported_yet(self):
+        p, _ = _p(256, 256, 128)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ops.frame_psd(torch.zeros(p.record_size), p)
+
+    def test_frame_psd_ct_and_plain(self):
+        for args in ((1024, 1024, 0), (768, 384, 100)):
+            p, jp = _p(*args, n_frames=4)
+            x = np.random.default_rng(2).standard_normal(
+                (2, p.record_size)).astype(np.float32)
+            got = ops.frame_psd(torch.as_tensor(x), p)
+            want = jops.frame_psd(jnp.asarray(x), jp)
+            assert got.shape == tuple(want.shape)
+            assert _maxrel(got, want, 1e-6) < 1e-3
+
+
+@pytest.mark.cuda
+class TestKernelsOnCard:
+    """Each CUDA kernel against its plain version on the card."""
+
+    def test_welch_psd(self, cuda):
+        p, _ = _p(256, 256, 128, n_frames=300)
+        rng = np.random.default_rng(1)
+        q = torch.as_tensor(_pcm(rng, (3, p.record_size)), device=cuda)
+        sc = torch.full((3,), 3e-4, dtype=torch.float32, device=cuda)
+        x = q.float() * sc[:, None]
+        got = framepsd.welch_psd(x, p)
+        assert _maxrel(got.cpu(), framepsd.welch_psd_plain(x, p).cpu(),
+                       1e-9) < 1e-4
+        assert torch.equal(got, framepsd.welch_psd(q, p, sc))
+
+    def test_ct_frame_psd(self, cuda):
+        p, _ = _p(4096, 4096, 0, n_frames=3)
+        x = torch.randn(7, 4096, device=cuda)
+        assert _maxrel(ct_rfft.ct_frame_psd(x, p).cpu(),
+                       ct_rfft.ct_frame_psd_plain(x, p).cpu(), 1e-6) < 1e-3
+
+    def test_welch_mean_and_tol(self, cuda):
+        p, _ = _p(4096, 4096, 0)
+        fp = torch.rand(3, 11, p.n_bins, device=cuda)
+        got = welch.welch_mean(fp)
+        assert _maxrel(got.cpu(), welch.welch_mean_plain(fp).cpu(),
+                       1e-9) < 1e-5
+        bm = torch.as_tensor(band_matrix(p), device=cuda)
+        assert float((tolk.tol_levels(got, bm, p)
+                      - tolk.tol_levels_plain(got, bm, p)).abs().max()) < 1e-4
