@@ -5,20 +5,29 @@ Run from the root of a checkout on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from ``src/repro_torch/kernels/
-csrc`` (nvcc, at first use), holds each against its plain PyTorch
-version at the shapes the paper's main path gives it, drives the main
-path — ``repro_torch.api.job(m, p).features("welch", "spl", "tol",
-"ltsa")`` over one 45-minute paper file for both paper parameter sets —
-and checks what comes out: float32 == int16 payload bitwise, resumed ==
-uninterrupted bitwise, agreement with ``scipy.signal.welch``, and launch
-counters showing the path went through the kernels.  Any failed check
-raises, so the script exits non-zero and never prints the ``ok`` line.
+It builds the six hand-written CUDA kernels from ``src/repro_torch/
+kernels/csrc`` (nvcc, at first use), holds each against its plain
+PyTorch version at the shapes the paper's paths give it, and drives two
+paths over one 45-minute paper file for both paper parameter sets:
+
+  * the main path, ``repro_torch.api.job(m, p).features("welch", "spl",
+    "tol", "ltsa")``, checked for float32 == int16 payload bitwise,
+    resumed == uninterrupted bitwise and agreement with
+    ``scipy.signal.welch``;
+  * the detection path, ``.source(api.WavSource(root)).features(
+    "percentiles", "spd").events(...)``, read from a wav file that the
+    port's ``write_dataset`` writes (a seeded corpus with loud bursts),
+    checked for float32 == int16 and resumed == uninterrupted bitwise,
+    event logs included, for events detected and an overflow flagged.
+
+Launch counters, set to 0 before each path and read after it, show
+which kernels each path went through.  Any failed check raises, so the
+script exits non-zero and never prints the ``ok`` line.
 
 Output, in order: the card (``nvidia-smi`` name and power limit), the
 build, one line per kernel check and per job, a ``{"kernels": [...]}``
 JSON line (per kernel: error, kernel / plain / library times and the
-least time the card could take, launches on the main path), and last
+least time the card could take, launches on the paths run), and last
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
 reference package, and has no CPU mode: without a CUDA device it exits
 non-zero.
@@ -32,6 +41,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -44,6 +54,12 @@ PEAK_BYTES = 3.35e12
 FILE_SEC = 45 * 60        # one paper wav file
 SEED = 20190315
 WARMUP, REPS, ROUNDS = 3, 20, 5
+
+# Detection path: a fixed threshold between the corpus's noise floor
+# (about -20.5 dB frame SPL) and its bursts (up to about -4 dB).
+EVENT_THRESHOLD_DB, EVENT_HYSTERESIS_DB = -17.0, 2.0
+BURST_SEC, BURST_AMP = 0.05, 30000.0
+OVERFLOW_RECORD, OVERFLOW_BURSTS = 7, 24      # > event_capacity (16)
 
 
 def check(cond: bool, what: str) -> None:
@@ -65,6 +81,51 @@ def psd_flops(n: int, n_bins: int) -> float:
     """One frame's one-sided PSD: window, a real FFT (~2.5 N log2 N),
     |X|^2 and the scale or frame sum per bin."""
     return n + 2.5 * n * math.log2(n) + 4 * n_bins
+
+
+def corpus(p, n_records):
+    """Seeded int16 PCM (noise std 3000 counts + a tone) and per-record
+    decode scales ``PCM_DECODE_SCALE x gain`` (gain 8-12)."""
+    import numpy as np
+    from repro_torch.core.params import PCM_DECODE_SCALE
+
+    n = p.record_size
+    pcm = np.empty((n_records, n), np.int16)
+    t = np.arange(n) / p.fs
+    for i in range(n_records):
+        rng = np.random.default_rng([SEED, i])
+        tone = 1000.0 * np.sin(2 * np.pi * (50 + 400 * rng.random()) * t)
+        x = rng.standard_normal(n) * 3000.0 + tone
+        pcm[i] = np.clip(np.rint(x), -32768, 32767).astype(np.int16)
+    gains = np.linspace(8.0, 12.0, n_records).astype(np.float32)
+    return pcm, (np.float32(PCM_DECODE_SCALE) * gains).astype(np.float32)
+
+
+def with_bursts(p, pcm):
+    """The corpus plus seeded loud bursts: Hann-windowed tones of
+    BURST_SEC, ~10x the noise, 1-3 in three records of four, and
+    OVERFLOW_BURSTS in record OVERFLOW_RECORD.  Each burst is centred
+    (+-BURST_SEC/4) in a cell of 4096 samples, the analysis frame of
+    paper set 2, so that it lies inside one frame of either set."""
+    import numpy as np
+
+    n, n_rec, cell = p.record_size, len(pcm), 4096
+    length = int(BURST_SEC * p.fs)
+    env = BURST_AMP * np.hanning(length)
+    t = np.arange(length) / p.fs
+    out = pcm.astype(np.float64)
+    for i in range(n_rec):
+        k = OVERFLOW_BURSTS if i == OVERFLOW_RECORD \
+            else (0 if i % 4 == 3 else 1 + i % 3)
+        rng = np.random.default_rng([SEED, 1, i])
+        for j in range(k):
+            centre = (int((j + 0.5) * n / k) // cell + 0.5) * cell
+            pos = int(centre - length / 2
+                      + rng.integers(-length // 4, length // 4))
+            pos = min(max(pos, 0), n - length)
+            f = 1000.0 + 3000.0 * rng.random()
+            out[i, pos:pos + length] += env * np.sin(2 * np.pi * f * t)
+    return np.clip(np.rint(out), -32768, 32767)
 
 
 def main() -> int:
@@ -89,7 +150,8 @@ def main() -> int:
                                          PCM_DECODE_SCALE)
     from repro_torch.core.tol import band_matrix
     from repro_torch.core.windows import make_window
-    from repro_torch.kernels import (_build, ct_rfft, framepsd, ops,
+    from repro_torch.data.wavio import BlockReader, write_dataset
+    from repro_torch.kernels import (_build, ct_rfft, events, framepsd, ops,
                                      tol as tolk, welch as welchk)
 
     dev = torch.device("cuda")
@@ -111,18 +173,6 @@ def main() -> int:
           f"(nvcc {lib.build_seconds}) -> {lib.path.name}")
 
     # -- data: one 45-min file per set, int16 PCM + per-record scales --
-    def corpus(p, n_records):
-        n = p.record_size
-        pcm = np.empty((n_records, n), np.int16)
-        t = np.arange(n) / p.fs
-        for i in range(n_records):
-            rng = np.random.default_rng([SEED, i])
-            tone = 1000.0 * np.sin(2 * np.pi * (50 + 400 * rng.random()) * t)
-            x = rng.standard_normal(n) * 3000.0 + tone
-            pcm[i] = np.clip(np.rint(x), -32768, 32767).astype(np.int16)
-        gains = np.linspace(8.0, 12.0, n_records).astype(np.float32)
-        return pcm, (np.float32(PCM_DECODE_SCALE) * gains).astype(np.float32)
-
     sets = {}
     for name, p in (("set1", PARAM_SET_1), ("set2", PARAM_SET_2)):
         n_rec = int(round(FILE_SEC / p.record_size_sec))
@@ -133,6 +183,24 @@ def main() -> int:
         sets[name] = (p, m, pcm, scales)
         print(f"{name}: {n_rec} records x {p.record_size} samples made in "
               f"{time.perf_counter() - t0:.2f} s")
+
+    # the detection corpus: the same PCM plus bursts, one wav file per set
+    (ROOT / "build").mkdir(exist_ok=True)
+    wav_tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    wavs = {}
+    for name, (p, m, pcm, _scales) in sets.items():
+        t0 = time.perf_counter()
+        loud = with_bursts(p, pcm).reshape(-1)
+        # + a quarter count away from zero: write_dataset truncates
+        # x * 32767 toward zero, so the file holds exactly `loud`
+        gen = lambda fi, n, v=loud: (v + 0.25 * np.sign(v)) / 32767.0
+        root = str(Path(wav_tmp.name) / name)
+        write_dataset(root, m, gen=gen)
+        wavs[name] = root
+        print(f"{name}: wav with bursts written in "
+              f"{time.perf_counter() - t0:.2f} s "
+              f"({Path(root, m.file_name(0)).stat().st_size / 1e6:.1f} MB)")
+        del loud
 
     def decoded(pcm, scales, idx):
         return pcm[idx].astype(np.float32) * scales[idx][:, None]
@@ -185,19 +253,37 @@ def main() -> int:
 
     report = []
 
+    def once_ms(fn):
+        """(span ms, host ms) of ONE call: for a plain version that is
+        a long loop of small launches, where REPS calls would take
+        minutes.  The card waits on the host between those launches, so
+        the span between the two events is host-paced wall time, not
+        device time."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_ms = span_ms(fn)
+        return dev_ms, (time.perf_counter() - t0) * 1e3
+
     def record(name, source, replaces, got, want, kernel, plain, library,
-               n_bytes, flops):
+               n_bytes, flops, plain_once=False):
         b_ms, b_by = bound_ms(n_bytes, flops)
-        (k_ms, k_host), (p_ms, p_host) = time_ms(kernel), time_ms(plain)
+        k_ms, k_host = time_ms(kernel)
+        p_ms, p_host = once_ms(plain) if plain_once else time_ms(plain)
         l_ms, l_host = (None, None) if library is None else time_ms(library)
         report.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None,
-            "max_abs_err": float((got.double() - want.double()).abs().max()),
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": l_ms})
-        print(f"{name}: device ms={k_ms:.5f} plain_ms={p_ms:.5f} "
-              f"library_ms={l_ms} bound_ms={b_ms:.5f} ({b_by}, "
+            "max_abs_err": max(
+                float((g.double() - w.double()).abs().max())
+                for g, w in (zip(got, want) if isinstance(got, tuple)
+                             else [(got, want)])),
+            "ms": k_ms, "plain_ms": p_ms,
+            "plain_timing": ("one call, host-paced wall" if plain_once
+                             else "device, queued calls"),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+        print(f"{name}: device ms={k_ms:.5f} plain_ms={p_ms:.5f}"
+              + (" (one call, host-paced wall)" if plain_once else "")
+              + f" library_ms={l_ms} bound_ms={b_ms:.5f} ({b_by}, "
               f"{b_ms / k_ms:.1%} of it)")
         print(f"{name}: host ms per call (enqueue): kernel={k_host:.5f} "
               f"plain={p_host:.5f} library={l_host}")
@@ -298,6 +384,89 @@ def main() -> int:
            n_bytes=(8 * nb + nb * nbands + 8 * nbands) * 4,
            flops=2 * 8 * int(torch.count_nonzero(bm)) + 3 * 8 * nbands)
 
+    def wav_step(name):
+        """The first step (8 records) of a set's detection corpus, read
+        from its wav file as the detection path reads it: raw int16 PCM
+        and per-record decode scales."""
+        reader = BlockReader(wavs[name], sets[name][1], raw=True)
+        q = torch.as_tensor(reader(idx8), device=dev)
+        s = torch.as_tensor(reader.scales_for(idx8), device=dev)
+        reader.close()
+        return q, s
+
+    # K5 frame_psd: the set-1 step of the detection corpus (float32 and
+    # raw int16)
+    q5, s5 = wav_step("set1")
+    x5 = q5.float() * s5[:, None]
+    k5 = framepsd.frame_psd(x5, p1)
+    k5_plain = framepsd.frame_psd_plain(x5, p1)
+    k5_q = framepsd.frame_psd(q5, p1, s5)
+    torch.cuda.synchronize()
+    err = max_rel(k5, k5_plain, 1e-9)
+    print(f"K5 frame_psd {tuple(x5.shape)} -> {tuple(k5.shape)}: max rel "
+          f"err {err:.3e} (tol 5e-4, floor 1e-9), int16 == float32 "
+          f"bitwise: {torch.equal(k5, k5_q)}")
+    check(err < 5e-4, "K5 disagrees with its plain version")
+    check(torch.equal(k5, k5_q), "K5 int16 call differs from float32 call")
+    record("frame_psd", "src/repro_torch/kernels/csrc/framepsd.cu",
+           "src/repro/kernels/framepsd.py:130", k5, k5_plain,
+           lambda: framepsd.frame_psd(x5, p1),
+           lambda: framepsd.frame_psd_plain(x5, p1),
+           lambda: (torch.fft.rfft(
+               x5.unfold(-1, p1.window_size, p1.hop) * w1, n=p1.nfft)
+               .abs().square() * sc1_bins),
+           n_bytes=(x5.numel() + k5.numel()) * 4,
+           flops=8 * fpr1 * psd_flops(p1.nfft, n1_bins))
+
+    # K6 detect_events: on the SPL and peak-bin trace of each set's
+    # detection step, from K5's output at set 1 and K2's at set 2, as
+    # the detection path builds it; recorded at set 1
+    def trace(fp, p):
+        return (spectra.db(torch.sum(fp, dim=-1) * p.df, p),
+                torch.argmax(fp, dim=-1).to(torch.int32))
+
+    q6, s6 = wav_step("set2")
+    traces = {"set1": trace(k5, p1),
+              "set2": trace(ops.frame_psd(q6, p2, scales=s6), p2)}
+    del x5, q5, k5, k5_plain, k5_q, q6, s6
+    for name, (spl6, pb6) in traces.items():
+        p = sets[name][0]
+        ev_kw = dict(threshold_db=EVENT_THRESHOLD_DB,
+                     hysteresis_db=EVENT_HYSTERESIS_DB,
+                     min_len=p.event_min_len, capacity=p.event_capacity)
+        k6 = events.detect_events(spl6, pb6, **ev_kw)
+        k6_plain = events.detect_events_plain(spl6, pb6, **ev_kw)
+        torch.cuda.synchronize()
+        same6 = all(torch.equal(a, b) for a, b in zip(k6, k6_plain))
+        counts6 = k6[0].tolist()
+        print(f"K6 detect_events {name} {tuple(spl6.shape)} -> counts "
+              f"{counts6}, rows {tuple(k6[1].shape)}: == plain version "
+              f"bitwise: {same6}")
+        check(same6, f"K6 disagrees with its plain version at {name}")
+        check(sum(counts6) > 0 and max(counts6) > p.event_capacity,
+              f"K6 {name} step found no events or no overflow")
+        k6_bytes = (spl6.numel() + pb6.numel() + k6[0].numel()
+                    + k6[1].numel()) * 4
+        if name == "set1":
+            record("detect_events", "src/repro_torch/kernels/csrc/events.cu",
+                   "src/repro/kernels/events.py:137", k6, k6_plain,
+                   lambda: events.detect_events(spl6, pb6, **ev_kw),
+                   lambda: events.detect_events_plain(spl6, pb6, **ev_kw),
+                   None, n_bytes=k6_bytes, flops=0, plain_once=True)
+        else:
+            # 80 frames a record: the plain loop is short enough for
+            # time_ms's queued calls
+            k_ms, k_host = time_ms(
+                lambda: events.detect_events(spl6, pb6, **ev_kw))
+            p_ms, p_host = time_ms(
+                lambda: events.detect_events_plain(spl6, pb6, **ev_kw))
+            b_ms, b_by = bound_ms(k6_bytes, 0)
+            print(f"detect_events {name} {tuple(spl6.shape)}: device "
+                  f"ms={k_ms:.5f} plain_ms={p_ms:.5f} bound_ms={b_ms:.7f} "
+                  f"({b_by}); host ms per call: kernel={k_host:.5f} "
+                  f"plain={p_host:.5f}")
+    del traces
+
     # -- phase 3: the main path ---------------------------------------------
     counters = ops.launch_counters()
     feats = ("welch", "spl", "tol", "ltsa")
@@ -358,24 +527,60 @@ def main() -> int:
         names = list(ra.features) + list(ra.epoch) + list(ra.windows)
         return all(same(ra[k], rb[k]) for k in names)
 
-    expected = {"set1": {"welch_psd", "tol_levels"},
-                "set2": {"ct_frame_psd", "welch_mean", "tol_levels"}}
     launches = {c: 0 for c in counters}
-    results = {}
-    for name in ("set1", "set2"):
-        p, m, pcm, scales = sets[name]
-        build(name, "float32", limit=1).run()          # warm-up step
+
+    def drive(path, name, make, expected, equal):
+        """One path at one set, through ``make(name, payload, store,
+        limit)``: a warm-up step; the timed float32 job, with every
+        count set to 0 just before it and read just after; the int16
+        job, == float32 bitwise; 2 steps into a store then a resumed
+        run, == uninterrupted bitwise.  Returns the float32 result and
+        the warnings its run issued."""
+        label = f"{name} {path}"
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            make(name, "float32", limit=1).run()        # warm-up step
         for c in counters.values():
             c.reset()
-        res = timed(f"{name} float32", name, build(name, "float32"))
+        torch.cuda.reset_peak_memory_stats()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = timed(f"{label} float32", name, make(name, "float32"))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         seen = {c: counters[c].count for c in counters}
-        print(f"{name} launches: {seen}")
+        print(f"{label} launches: {seen}; peak device memory "
+              f"{peak_gb:.3f} GB")
         for c, n in seen.items():
             launches[c] += n
-            check((n > 0) == (c in expected[name]),
-                  f"{name} launched {c} {n} times")
-        results[name] = res
+            check((n > 0) == (c in expected),
+                  f"{label} launched {c} {n} times")
 
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            for c in counters.values():
+                c.reset()
+            res_q = timed(f"{label} int16", name, make(name, "int16"))
+            check(all(counters[c].count > 0 for c in expected),
+                  f"{label} int16 run missed a kernel")
+            check(equal(res, res_q), f"{label} int16 != float32 bitwise")
+            print(f"{label}: int16 payload == float32 payload bitwise")
+
+            with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+                make(name, "float32", store=d, limit=2).run()
+                j = make(name, "float32", store=d)
+                check(j.resume_step() == 2,
+                      f"{label} store did not commit 2 steps")
+                check(equal(res, j.run()),
+                      f"{label} resumed run != uninterrupted run bitwise")
+            print(f"{label}: resumed (limit 2 + rerun) == uninterrupted "
+                  f"bitwise")
+        return res, caught
+
+    expected = {"set1": {"welch_psd", "tol_levels"},
+                "set2": {"ct_frame_psd", "welch_mean", "tol_levels"}}
+    for name in ("set1", "set2"):
+        p, m, pcm, scales = sets[name]
+        res, _ = drive("main", name, build, expected[name], all_equal)
         n_bins = p.n_bins
         check(res["welch"].shape == (m.n_records, n_bins)
               and res["ltsa"].shape == (3, n_bins)
@@ -383,24 +588,6 @@ def main() -> int:
               f"{name} output shapes")
         for k in ("welch", "spl", "tol", "ltsa", "mean_welch"):
             check(bool(np.isfinite(res[k]).all()), f"{name} {k} not finite")
-
-        for c in counters.values():
-            c.reset()
-        res_q = timed(f"{name} int16", name, build(name, "int16"))
-        check(all(counters[c].count > 0 for c in expected[name]),
-              f"{name} int16 run missed a kernel")
-        check(all_equal(res, res_q), f"{name} int16 != float32 bitwise")
-        print(f"{name}: int16 payload == float32 payload bitwise")
-
-        (ROOT / "build").mkdir(exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-            build(name, "float32", store=d, limit=2).run()
-            j = build(name, "float32", store=d)
-            check(j.resume_step() == 2, f"{name} store did not commit 2 steps")
-            res_r = j.run()
-            check(all_equal(res, res_r),
-                  f"{name} resumed run != uninterrupted run bitwise")
-        print(f"{name}: resumed (limit 2 + rerun) == uninterrupted bitwise")
 
         tol = 1e-4 if name == "set1" else 1e-3
         floor = 1e-9 if name == "set1" else 1e-6
@@ -415,6 +602,55 @@ def main() -> int:
             print(f"{name} record {i} vs scipy.signal.welch (float64): max "
                   f"rel err {err:.3e} (tol {tol:g})")
             check(err < tol, f"{name} record {i} disagrees with scipy")
+
+    # -- phase 4: the detection path, read from the wav files ----------------
+    det_expected = {"set1": {"frame_psd", "detect_events"},
+                    "set2": {"ct_frame_psd", "detect_events"}}
+
+    def detect(name, payload, store=None, limit=None):
+        p, m = sets[name][:2]
+        win = 15 if name == "set1" else 90     # 15-minute SPD panels
+        j = (api.job(m, p).source(api.WavSource(wavs[name]))
+             .features("percentiles", "spd")
+             .events(EVENT_THRESHOLD_DB, hysteresis_db=EVENT_HYSTERESIS_DB,
+                     impulsive=True)
+             .window(records=win).payload(payload).device("cuda")
+             .limit(limit))
+        return j.to(store) if store is not None else j
+
+    def logs_equal(ra, rb):
+        return sorted(ra.events) == sorted(rb.events) and all(
+            same(ra.events[k].counts, rb.events[k].counts)
+            and same(ra.events[k].rows, rb.events[k].rows)
+            for k in ra.events)
+
+    for name in ("set1", "set2"):
+        p, m = sets[name][:2]
+        res, caught = drive(
+            "detection", name, detect, det_expected[name],
+            lambda ra, rb: all_equal(ra, rb) and logs_equal(ra, rb))
+        ev, imp = res.events["events"], res.events["impulsive"]
+        warned = [w for w in caught
+                  if "event capacity overflow" in str(w.message)]
+        print(f"{name} detection: {ev.n_events} events kept in "
+              f"{int((ev.counts > 0).sum())} of {m.n_records} records, "
+              f"max count {int(ev.counts.max())} (capacity {ev.capacity}), "
+              f"overflow in records {np.flatnonzero(ev.overflow).tolist()}, "
+              f"{len(warned)} overflow warning(s); event logs included in "
+              f"both bitwise checks")
+        check(ev.n_events > 0, f"{name} detected no event")
+        check(bool(ev.overflow.any()) and len(warned) == 1,
+              f"{name} overflow not flagged once")
+        check(np.array_equal(ev.counts, imp.counts)
+              and bool(np.isfinite(imp.rows).all()),
+              f"{name} impulsive rows")
+        n_win = -(-m.n_records // (15 if name == "set1" else 90))
+        check(res["percentiles"].shape == (m.n_records, 7, p.n_bins)
+              and bool(np.isfinite(res["percentiles"]).all())
+              and res["spd"].shape == (n_win, p.n_bins, 60)
+              and bool(np.isfinite(res["spd"]).all()),
+              f"{name} detection output shapes")
+    wav_tmp.cleanup()
 
     p, m = sets["set1"][:2]
     res = timed("set1 device synthesis, default entry point", "set1",

@@ -3,13 +3,16 @@
 Three axes compose freely:
 
   * **features** — a registry of :class:`FeatureSpec` (welch, spl, tol,
-    ltsa, minmax, yours), all computed in one step per chunk from one
-    shared Welch PSD;
-  * **sources** — device-synthesized (:class:`SynthSource`) or any host
-    callback (:class:`ReaderSource`), float32 or raw int16 PCM;
+    ltsa, minmax, percentiles, spd, the ragged events/impulsive, yours),
+    all computed in one step per chunk from shared Welch / per-frame
+    PSD intermediates;
+  * **sources** — device-synthesized (:class:`SynthSource`), any host
+    callback (:class:`ReaderSource`) or a wav directory
+    (:class:`WavSource`), float32 or raw int16 PCM;
   * **sinks** — in-memory (:class:`MemorySink`), the resumable feature
     store (:class:`StoreSink`), or a streaming callback
-    (:class:`CallbackSink`).
+    (:class:`CallbackSink`); ragged outputs arrive as
+    :class:`EventLog` values.
 
 ::
 
@@ -26,15 +29,17 @@ from .features import (EPOCH_WINDOW, JOB_WINDOW, FeatureContext,
                        feature_names, get_feature, mean_reduction, register,
                        resolve_features, unregister)
 from .job import JobResult, SoundscapeJob, job
-from .sinks import CallbackSink, MemorySink, Sink, StoreSink, as_sink
-from .sources import ReaderSource, Source, SynthSource, as_source
+from .sinks import (CallbackSink, EventLog, MemorySink, Sink, StoreSink,
+                    as_sink)
+from .sources import ReaderSource, Source, SynthSource, WavSource, as_source
 
 __all__ = [
     "FeatureContext", "FeatureSpec", "Reduction", "StateField", "Window",
     "EPOCH_WINDOW", "JOB_WINDOW", "mean_reduction",
     "feature_names", "get_feature", "register", "resolve_features",
     "unregister",
-    "Source", "SynthSource", "ReaderSource", "as_source",
-    "Sink", "MemorySink", "StoreSink", "CallbackSink", "as_sink",
+    "Source", "SynthSource", "ReaderSource", "WavSource", "as_source",
+    "Sink", "MemorySink", "StoreSink", "CallbackSink", "EventLog",
+    "as_sink",
     "SoundscapeJob", "JobResult", "job",
 ]

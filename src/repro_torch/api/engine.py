@@ -4,13 +4,17 @@ Execution model (the paper's Fig 2.1): the *driver* is :func:`run_job`
 — it owns the plan, runs one step per chunk, and commits progress
 through the sink; the step runs every selected :class:`FeatureSpec`
 against one shared :class:`FeatureContext`, so all features share the
-Welch PSD and make a single pass over the data.
+Welch and per-frame PSDs and make a single pass over the data.
 
-The reduction carry (epoch aggregates and multi-window LTSA/extrema
+The reduction carry (epoch aggregates and multi-window LTSA/SPD/extrema
 state) lives on the job's device across the whole job and is copied to
 the host only at the commit boundaries of sinks that persist it, where
 freshly closed windows are finalized and flushed just before the commit
 that covers them.
+
+Ragged (event) features return fixed-capacity slabs from the step; the
+host compacts them to each record's kept rows and appends those to the
+sink's event log before the step's commit.
 
 Every reduction inside a step runs in a fixed order — a loop over the
 step's few window ids, each a ``sum``/``amin``/``amax`` over the rows
@@ -22,6 +26,7 @@ one (streams, pinned buffers, prefetch) is a later slice.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -57,6 +62,15 @@ def compile_step(specs: tuple[FeatureSpec, ...], m: DatasetManifest,
     def features_out(ctx, lead, mask):
         out = {}
         for s in specs:
+            if s.ragged:
+                # padding records' counts are zeroed, so the host-side
+                # compaction drops their rows entirely
+                counts, rows = s.compute(ctx)
+                counts = torch.where(mask.reshape(-1), counts, 0)
+                out[s.name] = {
+                    "counts": counts.reshape(lead),
+                    "rows": rows.reshape(lead + tuple(rows.shape[1:]))}
+                continue
             val = s.compute(ctx)
             val = val.reshape(lead + tuple(val.shape[1:]))
             if s.shape is None:
@@ -349,6 +363,7 @@ class JobStepper:
         self._closed = False
         self._result = None
         self._windows_out: dict[str, np.ndarray] = {}
+        self._overflowed = False     # event-capacity warning fired once
 
     def start(self) -> "JobStepper":
         """Bind, build, open the sink, restore committed state.  A
@@ -361,6 +376,7 @@ class JobStepper:
         self.source = source = self.source.bind(m, p)
         self._shapes = {s.name: tuple(s.shape(m, p)) for s in self.specs
                         if s.shape is not None}
+        self._ragged = {s.name: s for s in self.specs if s.ragged}
 
         bindings, wins = resolve_bindings(self.specs, m, p, self.window)
         self._bindings = bindings
@@ -381,6 +397,12 @@ class JobStepper:
             self.sink.open_windows({
                 b.out_name: (b.n_windows,) + tuple(b.red.out_shape(m, p))
                 for b in self._windowed})
+        if self._ragged:
+            # capacity is a params knob, so every ragged feature of a
+            # job shares p.event_capacity
+            self.sink.open_events({
+                name: (s.columns, p.event_capacity)
+                for name, s in self._ragged.items()})
         start_step, resumed = self.sink.resume_state()
         if resumed is not None:
             prev_agg, prev_live = resumed
@@ -472,6 +494,8 @@ class JobStepper:
                       (-1,) + self._shapes[name])[keep]
                   for name in self._shapes}
         self.sink.write(step, sel, values)
+        if self._ragged:
+            self.sink.write_events(step, sel, self._compact(out, keep))
         if self.sink.wants_commit:
             # the carry in its NATIVE dtypes (float32 / int32): resume
             # casts losslessly, _finalize_rows widens to float64 itself
@@ -482,10 +506,36 @@ class JobStepper:
             self.sink.commit(self.pl, step, agg_host,
                              float(self._agg_state["__live__"]))
 
+    def _compact(self, out, keep):
+        """Host-side compaction: the device returned fixed-capacity
+        slabs; only the first min(count, capacity) rows of each live
+        record enter the append-only log, in record order."""
+        ev = {}
+        for name in self._ragged:
+            counts = out[name]["counts"].cpu().numpy().reshape(-1)[keep]
+            rows = out[name]["rows"].cpu().numpy()
+            rows = rows.reshape((-1,) + rows.shape[-2:])[keep]
+            cap = rows.shape[1]
+            slot = np.arange(cap)[None, :] < np.minimum(counts, cap)[:, None]
+            ev[name] = (counts.astype(np.int32),
+                        rows[slot].astype(np.float32, copy=False))
+            if not self._overflowed and (counts > cap).any():
+                self._overflowed = True
+                warnings.warn(
+                    f"event capacity overflow in feature {name!r}: some "
+                    f"records detected more than {cap} events; only the "
+                    f"first {cap} are kept (raise "
+                    f"DepamParams.event_capacity or the threshold). "
+                    f"Affected records have counts > capacity in the "
+                    f"event log.", RuntimeWarning, stacklevel=2)
+        return ev
+
     def finish(self):
         """Finalize every window (trailing partial ones included) and the
         epoch aggregates; idempotent.  Returns (features, epoch, windows,
-        window_edges, n_records, plan) — see job.JobResult."""
+        window_edges, n_records, events, plan) — see job.JobResult;
+        ``events`` is the sink's {name: EventLog} for ragged features
+        (None when the job has none, or the sink streams)."""
         if not self._started:
             raise RuntimeError("JobStepper.finish before start()")
         if self._result is not None:
@@ -503,8 +553,10 @@ class JobStepper:
                  for b in self._bindings if b.to_epoch}
         window_edges = {name: self._edges[name].copy()
                         for name in self._windows_out}
+        events = self.sink.event_result() if self._ragged else None
         self._result = (self.sink.result(), epoch, self._windows_out,
-                        window_edges, int(host_state["__live__"]), self.pl)
+                        window_edges, int(host_state["__live__"]), events,
+                        self.pl)
         return self._result
 
     def close(self):
@@ -533,7 +585,7 @@ def run_job(m: DatasetManifest, p: DepamParams, specs: list[FeatureSpec],
             device: torch.device = torch.device("cuda")):
     """Drive the job over plan ``pl_`` to completion; resumable when the
     sink is.  Returns (features, epoch, windows, window_edges,
-    n_records, plan)."""
+    n_records, events, plan)."""
     return drive(JobStepper(m, p, specs, source, sink, pl_, use_kernels,
                             max_steps, window, device=device))
 

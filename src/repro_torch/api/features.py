@@ -7,8 +7,8 @@ A :class:`FeatureSpec` declares
     ``minmax``): its per-step value feeds reductions but is never stored
     per record;
   * ``compute(ctx)`` — a function from the shared
-    :class:`FeatureContext` (records + cached Welch PSD) to a
-    ``(batch, *shape)`` tensor;
+    :class:`FeatureContext` (records + cached Welch / frame-PSD
+    intermediates) to a ``(batch, *shape)`` tensor;
   * ``fill`` — the value written into padding slots beyond the manifest
     end (0 for linear power, -inf for dB levels);
   * optional ``setup(manifest, params)`` — host-side constants (e.g. the
@@ -18,10 +18,11 @@ A :class:`FeatureSpec` declares
     accumulated in the engine's on-device carry.
 
 Every selected spec computes from the SAME context in one step, so
-("welch", "spl", "tol") runs the Welch PSD once.  This slice ports the
-paper's features (welch, spl, tol) and the windowed ltsa/minmax; the
-spectrogram features (percentiles, spd) and the ragged detection
-features (events, impulsive) come with their kernels.
+("welch", "spl", "tol") runs the Welch PSD once and ("percentiles",
+"spd", "events") the per-frame PSD once.  The registry holds the
+paper's features (welch, spl, tol), the windowed ltsa/minmax/spd, the
+spectrogram percentiles, and the ragged detection features (events,
+impulsive: ``ragged=True``, see :class:`FeatureSpec`).
 """
 from __future__ import annotations
 
@@ -43,13 +44,14 @@ class FeatureContext:
     """Shared per-step state handed to every ``FeatureSpec.compute``.
 
     ``records`` is the flat ``(batch, record_size)`` float32 waveform
-    batch on the job's device.  The Welch PSD is computed lazily and
-    cached, so N features selecting it compute it exactly once.
+    batch on the job's device.  The intermediates (Welch PSD, per-frame
+    PSD, frame SPL and peak bins, detected events) are computed lazily
+    and cached, so N features selecting one compute it exactly once.
 
     With the int16 payload the context holds the raw ``(batch,
     record_size)`` PCM plus the per-record decode-scale sidecar
-    (``scales``); the Welch PSD then hands the PCM straight to the
-    kernels, which dequantize as they load, and ``ctx.records``
+    (``scales``); the PSD intermediates then hand the PCM straight to
+    the kernels, which dequantize as they load, and ``ctx.records``
     dequantizes lazily (bitwise-equal to the host decode) only for
     features that need the waveform itself.
     """
@@ -78,19 +80,69 @@ class FeatureContext:
             self._cache["records"] = dequantize(self.pcm, self.scales)
         return self._cache["records"]
 
-    @property
-    def welch(self) -> torch.Tensor:
-        """(batch, n_bins) Welch PSD: the kernels, or the plain
-        ``core.spectra`` path under ``.kernels(False)``."""
-        if "welch" not in self._cache:
+    def _psd(self, key: str, kernel_fn, plain_fn) -> torch.Tensor:
+        """Shared dispatch for the cached PSD intermediates: the kernel
+        entry points take raw PCM + the scales sidecar directly; the
+        plain ``core.spectra`` path (``.kernels(False)``) gets the
+        (lazily dequantized) float32 records."""
+        if key not in self._cache:
             if self.use_kernels:
                 src = self.pcm if self.quantized else self.records
-                out = ops.welch_psd(src, self.params, scales=self.scales
-                                    if self.quantized else None)
+                out = kernel_fn(src, self.params, scales=self.scales
+                                if self.quantized else None)
             else:
-                out = spectra.welch_psd(self.records, self.params)
-            self._cache["welch"] = out
-        return self._cache["welch"]
+                out = plain_fn(self.records, self.params)
+            self._cache[key] = out
+        return self._cache[key]
+
+    @property
+    def welch(self) -> torch.Tensor:
+        """(batch, n_bins) Welch PSD."""
+        return self._psd("welch", ops.welch_psd, spectra.welch_psd)
+
+    @property
+    def frame_psd(self) -> torch.Tensor:
+        """(batch, n_frames, n_bins) per-frame PSD (the spectrogram)."""
+        return self._psd("frame_psd", ops.frame_psd, spectra.frame_psd)
+
+    @property
+    def frame_db(self) -> torch.Tensor:
+        """(batch, n_frames, n_bins) per-frame PSD in dB (percentiles
+        and spd share it)."""
+        if "frame_db" not in self._cache:
+            self._cache["frame_db"] = spectra.db(self.frame_psd,
+                                                 self.params)
+        return self._cache["frame_db"]
+
+    @property
+    def frame_spl(self) -> torch.Tensor:
+        """(batch, n_frames) wideband SPL per analysis frame, dB — the
+        trace detection scans."""
+        if "frame_spl" not in self._cache:
+            power = torch.sum(self.frame_psd, dim=-1) * self.params.df
+            self._cache["frame_spl"] = spectra.db(power, self.params)
+        return self._cache["frame_spl"]
+
+    @property
+    def frame_peak_bin(self) -> torch.Tensor:
+        """(batch, n_frames) int32 argmax PSD bin per frame (the first
+        maximum, as ``jnp.argmax``)."""
+        if "frame_peak_bin" not in self._cache:
+            self._cache["frame_peak_bin"] = torch.argmax(
+                self.frame_psd, dim=-1).to(torch.int32)
+        return self._cache["frame_peak_bin"]
+
+    @property
+    def events(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """Detected events, cached so ``events`` and ``impulsive`` share
+        one scan: ``(counts (batch,) int32, rows (batch, event_capacity,
+        4) float32)`` with rows ``(onset_frame, n_frames, peak_bin,
+        peak_db)``.  Thresholds come off ``ctx.params``."""
+        if "events" not in self._cache:
+            self._cache["events"] = ops.detect_events(
+                self.frame_spl, self.frame_peak_bin, self.params,
+                kernel=self.use_kernels)
+        return self._cache["events"]
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +283,17 @@ class Reduction:
 
 @dataclasses.dataclass(frozen=True)
 class FeatureSpec:
-    """A registered feature workload (see module docstring)."""
+    """A registered feature workload (see module docstring).
+
+    ``ragged=True`` marks the third output kind beside fixed-shape and
+    reduction-only: ``compute`` returns a count-prefixed pair
+    ``(counts (batch,) int32, rows (batch, capacity, len(columns))
+    float32)``.  ``counts`` is the TRUE per-record event count
+    (``counts > capacity`` flags overflow), and the engine routes the
+    host-compacted rows to the sink's append-only event log.  Ragged
+    specs must name their ``columns`` and cannot also declare reductions
+    or a dense ``shape``.
+    """
 
     name: str
     shape: Callable[[DatasetManifest, DepamParams],
@@ -240,7 +302,23 @@ class FeatureSpec:
     fill: float = 0.0
     setup: Callable[[DatasetManifest, DepamParams], dict] | None = None
     reductions: tuple[Reduction, ...] = ()
+    ragged: bool = False
+    columns: tuple[str, ...] = ()
     doc: str = ""
+
+    def __post_init__(self):
+        if self.ragged:
+            if not self.columns:
+                raise ValueError(
+                    f"ragged feature {self.name!r} must declare columns")
+            if self.shape is not None or self.reductions:
+                raise ValueError(
+                    f"ragged feature {self.name!r} cannot also declare a "
+                    f"dense shape or reductions")
+        elif self.columns:
+            raise ValueError(
+                f"feature {self.name!r}: columns= is only meaningful "
+                f"with ragged=True")
 
 
 _REGISTRY: dict[str, FeatureSpec] = {}
@@ -350,6 +428,39 @@ register(FeatureSpec(
     doc="Third-octave levels per record, dB (IEC 61260 base-10 bands)."))
 
 
+# pypam-style soundscape statistics: per-record percentiles of the frame
+# spectrogram (dB), per frequency bin.
+SPECTRUM_PERCENTILES = (1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0)
+
+
+def _percentiles_compute(ctx: FeatureContext) -> torch.Tensor:
+    """numpy's (and ``jnp.percentile``'s) default ``linear`` method,
+    written out over one sort along the frame axis: ``torch.quantile``
+    refuses inputs above 2**24 elements, which a step's spectrogram
+    reaches.  The interpolation positions are host-side constants."""
+    srt = torch.sort(ctx.frame_db, dim=-2).values   # (batch, F, n_bins)
+    n = srt.shape[-2]
+    out = []
+    for q in SPECTRUM_PERCENTILES:
+        pos = q / 100.0 * (n - 1)
+        lo = int(np.floor(pos))
+        hi = min(lo + 1, n - 1)
+        t = pos - lo
+        a, b = srt[:, lo], srt[:, hi]
+        diff = b - a
+        # numpy's _lerp: from the nearer end, so t = 0 and t = 1 are exact
+        out.append(a + diff * t if t < 0.5 else b - diff * (1.0 - t))
+    return torch.stack(out, dim=1)                  # (batch, n_pct, n_bins)
+
+
+register(FeatureSpec(
+    name="percentiles",
+    shape=lambda m, p: (len(SPECTRUM_PERCENTILES), p.n_bins),
+    compute=_percentiles_compute,
+    fill=-float("inf"),
+    doc="Spectrum percentile levels per record (dB), pypam-style."))
+
+
 register(FeatureSpec(
     name="ltsa",
     shape=None,
@@ -359,6 +470,59 @@ register(FeatureSpec(
         doc="Windowed mean Welch PSD — the long-term spectral average "
             "panel (linear; 10*log10 for the dB plot)."),),
     doc="LTSA: mean Welch PSD per time window."))
+
+
+# SPD histogram layout (pypam compute_spd): dB bins of width SPD_DB_STEP
+# spanning [SPD_DB_MIN, SPD_DB_MAX), per frequency bin, per window.
+# Out-of-range frames are dropped, exactly like np.histogram's range=.
+SPD_DB_MIN = -120.0
+SPD_DB_MAX = 60.0
+SPD_DB_STEP = 3.0
+SPD_N_DB = int(round((SPD_DB_MAX - SPD_DB_MIN) / SPD_DB_STEP))
+
+
+def _spd_update(db: torch.Tensor, mask: torch.Tensor) -> dict:
+    """Per-record frame-count histogram: (batch, n_frames, n_bins) dB ->
+    {counts: (batch, n_bins, SPD_N_DB) int32}.  One ``bincount`` over
+    the flat ids, offset per record: integer adds give the same bits in
+    any order, so the atomics a GPU bincount uses change nothing."""
+    batch, _, n_bins = db.shape
+    n_ids = n_bins * SPD_N_DB + 1            # the last id drops a frame
+    freq = torch.arange(n_bins, device=db.device)
+    dbin = torch.floor((db - SPD_DB_MIN) / SPD_DB_STEP).to(torch.int64)
+    valid = (db >= SPD_DB_MIN) & (db < SPD_DB_MAX) & mask[:, None, None]
+    ids = torch.where(valid, freq * SPD_N_DB + dbin, n_ids - 1)
+    ids = ids + n_ids * torch.arange(batch, device=db.device)[:, None, None]
+    h = torch.bincount(ids.reshape(-1), minlength=batch * n_ids)
+    h = h.reshape(batch, n_ids)[:, :-1].reshape(batch, n_bins, SPD_N_DB)
+    return {"counts": h.to(torch.int32)}
+
+
+def _spd_finalize(state: dict[str, np.ndarray]) -> np.ndarray:
+    """Counts -> empirical probability density per (window, freq bin):
+    rows integrate to 1 over dB (np.histogram density=True semantics,
+    normalized by the in-range frame count per frequency bin)."""
+    counts = state["counts"]
+    total = counts.sum(axis=-1, keepdims=True)
+    return counts / np.where(total > 0, total * SPD_DB_STEP, 1.0)
+
+
+register(FeatureSpec(
+    name="spd",
+    shape=None,
+    compute=lambda ctx: ctx.frame_db,
+    reductions=(Reduction(
+        out_name="spd",
+        init=lambda m, p: (
+            StateField("counts", (p.n_bins, SPD_N_DB), dtype="int32"),),
+        update=_spd_update,
+        finalize=_spd_finalize,
+        out_shape=lambda m, p: (p.n_bins, SPD_N_DB),
+        doc="Spectral probability density: per-window histogram of the "
+            "frame-PSD dB levels, per frequency bin (pypam "
+            "compute_spd)."),),
+    doc="SPD: windowed dB-histogram of the frame spectrogram, "
+        "normalized to a probability density per frequency bin."))
 
 
 def _extremum_reduction(out_name: str, op: str) -> Reduction:
@@ -392,3 +556,88 @@ register(FeatureSpec(
     reductions=(_extremum_reduction("min_welch", "min"),
                 _extremum_reduction("max_welch", "max")),
     doc="Windowed min/max Welch spectrum per frequency bin."))
+
+
+# ---------------------------------------------------------------------------
+# Ragged detection workloads (pypam loud_event_detector / pile-driving
+# impulsive metrics).  Both ride the cached frame-PSD trace and share
+# ONE threshold+compaction scan via ctx.events.
+# ---------------------------------------------------------------------------
+
+EVENT_COLUMNS = ("onset", "duration", "peak_bin", "peak_db")
+IMPULSIVE_COLUMNS = ("sel", "peak", "kurtosis", "rise_time")
+
+
+register(FeatureSpec(
+    name="events",
+    shape=None,
+    compute=lambda ctx: ctx.events,
+    ragged=True,
+    columns=EVENT_COLUMNS,
+    doc="Loud-event windows per record (pypam loud_event_detector): "
+        "Schmitt-trigger detection over the per-frame wideband SPL, "
+        "rows = (onset_frame, n_frames, peak_bin, peak_db)."))
+
+
+def _impulsive_compute(ctx: FeatureContext):
+    """Per-event impulsive metrics from the raw waveform (pypam
+    pile-driving suite): SEL, zero-to-peak level, kurtosis, rise time.
+
+    Each detected event's sample span is [onset*hop,
+    (onset+dur-1)*hop + window_size) clipped to the record.  The moment
+    sums are ``einsum`` products over a (batch, capacity, record_size)
+    span mask, as the reference writes them, and the peak a ``max`` /
+    ``argmax`` over the masked x^2: the int16 and float32 payloads see
+    the same float32 ``x`` and the same operations, so they agree
+    bitwise.  No float atomics.  Kurtosis uses the central-moment
+    identities over raw power sums (events are zero-mean-ish pressure,
+    so the cancellation is mild).  Memory is O(capacity) over the
+    waveform, on the device; only capacity rows come home.
+    """
+    p = ctx.params
+    counts, rows = ctx.events
+    x = ctx.records                                   # (B, N) float32
+    n = x.shape[-1]
+    k = p.event_capacity
+    dev = x.device
+    onset = rows[..., 0].to(torch.int32)              # (B, K) frames
+    dur = rows[..., 1].to(torch.int32)
+    valid = torch.arange(k, dtype=torch.int32, device=dev)[None, :] \
+        < torch.clamp(counts, max=k)[:, None]
+    s0 = onset * p.hop                                # first sample
+    s1 = torch.clamp((onset + dur - 1) * p.hop + p.window_size, max=n)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)[None, None, :]
+    span = ((idx >= s0[..., None]) & (idx < s1[..., None])
+            & valid[..., None])                       # (B, K, N) bool
+    spanf = span.to(torch.float32)
+    x2 = x * x
+    pows = (x, x2, x2 * x, x2 * x2)
+    ns = torch.einsum("bkn->bk", spanf)
+    s_1, s_2, s_3, s_4 = (torch.einsum("bn,bkn->bk", v, spanf)
+                          for v in pows)
+    nz = torch.clamp(ns, min=1.0)
+    fs = torch.tensor(np.float32(p.fs), device=dev)
+    sel = spectra.db(s_2 / fs, p)                    # dB re 1 uPa^2 s
+    x2m = torch.where(span, x2[:, None, :], 0.0)
+    peak = spectra.db(torch.amax(x2m, dim=-1), p)     # zero-to-peak
+    mean = s_1 / nz
+    m2 = s_2 / nz - mean * mean
+    m4 = (s_4 / nz - 4.0 * mean * (s_3 / nz)
+          + 6.0 * (mean * mean) * (s_2 / nz)
+          - 3.0 * (mean * mean) * (mean * mean))
+    kurt = m4 / torch.clamp(m2 * m2, min=1e-30)
+    rise = (torch.argmax(x2m, dim=-1).to(torch.float32)
+            - s0.to(torch.float32)) / fs
+    vals = torch.stack([sel, peak, kurt, rise], dim=-1)
+    return counts, torch.where(valid[..., None], vals, 0.0)
+
+
+register(FeatureSpec(
+    name="impulsive",
+    shape=None,
+    compute=_impulsive_compute,
+    ragged=True,
+    columns=IMPULSIVE_COLUMNS,
+    doc="Per-event impulsive metrics from the raw waveform (pypam "
+        "pile-driving suite): SEL (dB re 1 uPa^2 s), zero-to-peak level "
+        "(dB), kurtosis (m4/m2^2), rise time (s)."))

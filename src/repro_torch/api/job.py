@@ -11,6 +11,7 @@
                  .to("/tmp/depam")    # optional: default in-memory
                  .chunk(8)
                  .payload("int16")    # optional: raw-PCM transport
+                 .events(60.0, impulsive=True)  # optional: detection
                  .device("cuda")      # the default; "cpu" opts out
                  .run())
 
@@ -46,9 +47,12 @@ class JobResult:
       * ``windows`` — reduction output -> (n_windows, *shape) windowed
         array, with ``window_edges[name]`` the (n_windows + 1,)
         record-offset boundaries;
-      * ``epoch`` — whole-epoch aggregates such as ``mean_welch``.
+      * ``epoch`` — whole-epoch aggregates such as ``mean_welch``;
+      * ``events`` — ragged feature name -> ``sinks.EventLog``
+        (per-record TRUE counts + kept rows); None when the job selects
+        no ragged feature or the sink streams.
 
-    ``result[name]`` looks up all three; a name present in more than one
+    ``result[name]`` looks up all four; a name present in more than one
     namespace raises instead of silently preferring one.
     """
 
@@ -58,10 +62,12 @@ class JobResult:
     window_edges: dict[str, np.ndarray]
     n_records: int
     plan: ShardPlan
+    events: dict | None = None
 
     def __getitem__(self, name: str):
         spaces = [("features", self.features or {}),
-                  ("epoch", self.epoch), ("windows", self.windows)]
+                  ("epoch", self.epoch), ("windows", self.windows),
+                  ("events", self.events or {})]
         hits = [(label, d[name]) for label, d in spaces if name in d]
         if len(hits) > 1:
             raise KeyError(
@@ -72,8 +78,9 @@ class JobResult:
             return hits[0][1]
         raise KeyError(
             f"{name!r} not in features {sorted(self.features or ())}, "
-            f"epoch {sorted(self.epoch)}, or windows "
-            f"{sorted(self.windows)}")
+            f"epoch {sorted(self.epoch)}, windows "
+            f"{sorted(self.windows)}, or events "
+            f"{sorted(self.events or ())}")
 
 
 class SoundscapeJob:
@@ -140,6 +147,33 @@ class SoundscapeJob:
         """Toggle the CUDA kernel path (True) vs the plain
         ``core.spectra`` path."""
         self._use_kernels = bool(enabled)
+        return self
+
+    def events(self, threshold_db: float | None = None, *,
+               hysteresis_db: float | None = None,
+               min_len: int | None = None,
+               capacity: int | None = None,
+               impulsive: bool = False) -> "SoundscapeJob":
+        """Add loud-event detection to the job.
+
+        Appends the ragged ``events`` feature (and the per-event
+        ``impulsive`` metrics when ``impulsive=True``) to the selection
+        and overrides the detection knobs on the job's params, where
+        they live.  Omitted knobs keep the params' current values.
+        """
+        overrides = {k: v for k, v in (
+            ("event_threshold_db", threshold_db),
+            ("event_hysteresis_db", hysteresis_db),
+            ("event_min_len", min_len),
+            ("event_capacity", capacity)) if v is not None}
+        if overrides:
+            self._p = dataclasses.replace(self._p, **overrides)
+        names = {s.name if isinstance(s, FeatureSpec) else s
+                 for s in self._features}
+        if "events" not in names:
+            self._features.append("events")
+        if impulsive and "impulsive" not in names:
+            self._features.append("impulsive")
         return self
 
     def payload(self, dtype: str) -> "SoundscapeJob":
@@ -209,10 +243,11 @@ class SoundscapeJob:
             window=self._window, device=device)
 
     def run(self) -> JobResult:
-        features, epoch, windows, edges, n_records, pl_ = \
+        features, epoch, windows, edges, n_records, events, pl_ = \
             engine.drive(self._stepper())
         return JobResult(features=features, epoch=epoch, windows=windows,
-                         window_edges=edges, n_records=n_records, plan=pl_)
+                         window_edges=edges, n_records=n_records,
+                         events=events, plan=pl_)
 
 
 def job(manifest: DatasetManifest, params: DepamParams) -> SoundscapeJob:

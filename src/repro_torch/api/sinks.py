@@ -11,16 +11,24 @@ The engine hands every sink:
     mapping opaquely, which is what makes resume bitwise-exact;
   * ``open_windows`` / ``write_windows`` — the windowed outputs'
     layout and their finalized rows (closed windows at commit
-    boundaries, the trailing ones at job end).
+    boundaries, the trailing ones at job end);
+  * ``open_events`` / ``write_events`` — the ragged (event) outputs'
+    ``{feature: (columns, capacity)}`` layouts and each step's
+    host-compacted slice: per-record TRUE counts plus the kept rows,
+    append-only in record order; ``event_result`` materializes them as
+    :class:`EventLog` values.
 
 Contract: ``open`` first, ``write(step=k)`` before ``commit(step=k)``,
-steps ascending, and a commit makes every prior write durable.
+steps ascending, and a commit makes every prior write durable — event
+rows included: the resumable store keeps its own per-log row cursor, so
+a crash between write and commit never duplicates or tears an event.
 ``as_sink`` normalizes what users pass to ``job.to()``: ``None`` ->
 in-memory arrays, a path string or ``FeatureStore`` -> the resumable
 store, a callable -> streaming callback, a ``Sink`` -> itself.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import numpy as np
@@ -28,6 +36,50 @@ import numpy as np
 from repro_torch.core.manifest import DatasetManifest, ShardPlan
 from repro_torch.core.params import DepamParams
 from repro_torch.core.store import FeatureStore
+
+
+@dataclasses.dataclass
+class EventLog:
+    """A materialized ragged event log (``JobResult.events`` values).
+
+    ``counts[i]`` is the TRUE number of events detected in record ``i``
+    (``counts[i] > capacity`` flags overflow: the first ``capacity``
+    rows were kept, the rest dropped loudly).  ``rows`` concatenates the
+    kept rows of every record in record order; use :meth:`record` /
+    :attr:`offsets` to slice per record.
+    """
+
+    counts: np.ndarray            # (n_records,) int32, TRUE counts
+    rows: np.ndarray              # (n_kept_total, len(columns)) float32
+    columns: tuple[str, ...]
+    capacity: int
+
+    @property
+    def kept(self) -> np.ndarray:
+        """(n_records,) rows actually stored: min(counts, capacity)."""
+        return np.minimum(self.counts, self.capacity)
+
+    @property
+    def offsets(self) -> np.ndarray:
+        """(n_records + 1,) row offsets: record i owns
+        rows[offsets[i]:offsets[i+1]]."""
+        return np.concatenate([[0], np.cumsum(self.kept)]).astype(np.int64)
+
+    @property
+    def overflow(self) -> np.ndarray:
+        """(n_records,) bool — records whose events exceeded capacity."""
+        return self.counts > self.capacity
+
+    @property
+    def n_events(self) -> int:
+        return int(self.kept.sum())
+
+    def record(self, i: int) -> np.ndarray:
+        o = self.offsets
+        return self.rows[o[i]:o[i + 1]]
+
+    def column(self, name: str) -> np.ndarray:
+        return self.rows[:, self.columns.index(name)]
 
 
 class Sink:
@@ -64,6 +116,25 @@ class Sink:
                       values: np.ndarray) -> None:
         """Finalized window rows ``[start, start + len(values))``."""
 
+    def open_events(self, layouts: dict[str, tuple[tuple[str, ...],
+                                                   int]]) -> None:
+        """Ragged-output layout, ``{feature: (columns, capacity)}``,
+        right after ``open`` when the job selects ragged features."""
+
+    def write_events(self, step: int, indices: np.ndarray,
+                     values: dict[str, tuple[np.ndarray,
+                                             np.ndarray]]) -> None:
+        """One step's event-log slice: ``values`` maps feature name to
+        ``(counts, rows)``, ``counts`` aligned with ``indices`` (TRUE
+        per-record counts, int32) and ``rows`` the host-compacted
+        ``(sum(min(counts, capacity)), n_cols)`` float32 block in record
+        order.  Append-only: steps arrive in ascending order."""
+
+    def event_result(self) -> dict[str, EventLog] | None:
+        """Materialized event logs keyed by feature, or None for
+        streaming sinks."""
+        return None
+
     def commit(self, plan: ShardPlan, step: int,
                agg: dict[str, np.ndarray], live: float) -> None:
         pass
@@ -83,10 +154,44 @@ class MemorySink(Sink):
 
     def __init__(self):
         self.arrays: dict[str, np.ndarray] | None = None
+        self._n_records = 0
+        self._events: dict[str, dict] = {}
 
     def open(self, m, p, shapes, plan):
+        self._n_records = m.n_records
+        self._events = {}
         self.arrays = {name: np.zeros((m.n_records,) + shape, np.float32)
                        for name, shape in shapes.items()}
+
+    def open_events(self, layouts):
+        # rows are keyed by record, so the materialized log is in record
+        # order whatever order the steps deliver records in
+        self._events = {
+            name: {"columns": cols, "capacity": cap,
+                   "counts": np.zeros(self._n_records, np.int32),
+                   "rows": {}}
+            for name, (cols, cap) in layouts.items()}
+
+    def write_events(self, step, indices, values):
+        for name, (counts, rows) in values.items():
+            ev = self._events[name]
+            ev["counts"][indices] = counts
+            kept = np.minimum(counts, ev["capacity"])
+            offs = np.concatenate([[0], np.cumsum(kept)])
+            rows = np.asarray(rows, np.float32)
+            for i, rec in enumerate(np.asarray(indices)):
+                ev["rows"][int(rec)] = rows[offs[i]:offs[i + 1]]
+
+    def event_result(self):
+        out = {}
+        for name, ev in self._events.items():
+            parts = [ev["rows"][r] for r in sorted(ev["rows"])]
+            rows = (np.concatenate(parts) if parts
+                    else np.zeros((0, len(ev["columns"])), np.float32))
+            out[name] = EventLog(counts=ev["counts"], rows=rows,
+                                 columns=ev["columns"],
+                                 capacity=ev["capacity"])
+        return out
 
     def write(self, step, indices, values):
         for name, vals in values.items():
@@ -112,9 +217,12 @@ class StoreSink(Sink):
         self.arrays: dict[str, np.memmap] | None = None
         self.window_arrays: dict[str, np.memmap] = {}
         self._plan: ShardPlan | None = None
+        self._n_records = 0
+        self._event_meta: dict[str, tuple[tuple[str, ...], int]] = {}
 
     def open(self, m, p, shapes, plan):
         self._plan = plan
+        self._n_records = m.n_records
         committed = self.store.committed_steps(plan)
         if committed > 0:
             # a feature added after the cursor advanced has no data for
@@ -138,6 +246,43 @@ class StoreSink(Sink):
 
     def write_windows(self, name, start, values):
         self.window_arrays[name][start:start + len(values)] = values
+
+    def open_events(self, layouts):
+        committed = self.store.committed_steps(self._plan)
+        if committed > 0:
+            # as for dense features in open(): a ragged feature added
+            # after the cursor advanced has no rows for the committed
+            # prefix, and resuming would publish a truncated log
+            missing = sorted(n for n in layouts
+                             if not self.store.event_log_exists(n))
+            if missing:
+                raise ValueError(
+                    f"cannot resume: event logs {missing} have no data "
+                    f"for the {committed} already-committed steps "
+                    f"(added after the store was written?); use a fresh "
+                    f"store directory or drop them from the job")
+        self._event_meta = dict(layouts)
+        self.store.open_events(
+            {name: (self._n_records, len(cols))
+             for name, (cols, _cap) in layouts.items()})
+
+    def write_events(self, step, indices, values):
+        for name, (counts, rows) in values.items():
+            self.store.append_events(name, indices, counts, rows)
+
+    def event_result(self):
+        # the port's plans have one shard, whose log is appended in
+        # record order (a partitioned plan would need the reference's
+        # reorder_event_rows)
+        out = {}
+        for name, (cols, cap) in self._event_meta.items():
+            counts, rows = self.store.read_events(name)
+            out[name] = EventLog(counts=counts, rows=rows, columns=cols,
+                                 capacity=cap)
+        return out
+
+    def close(self):
+        self.store.close_events()
 
     def resume_state(self):
         start = self.store.committed_steps(self._plan)
@@ -165,15 +310,19 @@ class StoreSink(Sink):
 class CallbackSink(Sink):
     """Streaming sink: ``fn(step, indices, values)`` per step, nothing
     retained.  ``on_windows(name, start, values)``, when given, also
-    streams finalized window rows as they close."""
+    streams finalized window rows as they close, and
+    ``on_events(step, indices, values)`` each step's event-log slice."""
 
     wants_commit = False
 
     def __init__(self, fn: Callable[[int, np.ndarray, dict], None],
                  on_windows: Callable[[str, int, np.ndarray],
-                                      None] | None = None):
+                                      None] | None = None,
+                 on_events: Callable[[int, np.ndarray, dict],
+                                     None] | None = None):
         self.fn = fn
         self.on_windows = on_windows
+        self.on_events = on_events
         # mid-job window flushes ride commit boundaries
         self.wants_commit = on_windows is not None
 
@@ -183,6 +332,10 @@ class CallbackSink(Sink):
     def write_windows(self, name, start, values):
         if self.on_windows is not None:
             self.on_windows(name, start, values)
+
+    def write_events(self, step, indices, values):
+        if self.on_events is not None:
+            self.on_events(step, indices, values)
 
 
 def as_sink(sink) -> Sink:

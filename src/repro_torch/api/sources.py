@@ -6,16 +6,21 @@ Two modes behind one interface:
     record *indices* and regenerates the waveforms on the job's device
     from the manifest seed — any record can be recomputed anywhere, with
     no host IO;
-  * **host-fed** (:class:`ReaderSource`): the driver fetches
-    ``(n_shards, chunk, record_size)`` waveforms on the host and ships
+  * **host-fed** (:class:`ReaderSource`, :class:`WavSource`): the
+    driver fetches ``(n_shards, chunk, record_size)`` waveforms on the
+    host (any reader callback, or a directory of wav files) and ships
     them to the device.
 
 Host-fed sources carry a **payload dtype**: ``"float32"`` (decoded
 waveforms, the default) or ``"int16"`` (raw PCM: half the host->device
 bytes; the per-record float32 decode-scale sidecar from
 :meth:`Source.scales` rides along and the kernels dequantize as they
-load, bitwise-identically).  Wav files and the pipelined prefetcher come
-with later slices.
+load, bitwise-identically).  The pipelined prefetcher comes with a
+later slice.
+
+``as_source`` normalizes what users pass to ``job.source()``: ``None``
+-> synthesis, a callable -> ``ReaderSource``, a path string ->
+``WavSource``, a ``Source`` -> itself.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch.core.manifest import DatasetManifest, ShardPlan
 from repro_torch.core.params import DepamParams, PCM_DECODE_SCALE
+from repro_torch.data.wavio import BlockReader
 
 
 def _record_seed(seed: int, idx: int) -> int:
@@ -172,15 +178,71 @@ class ReaderSource(Source):
         return super().scales(indices)
 
 
+class WavSource(Source):
+    """Reads from a directory of wav files laid out by the manifest
+    (uniform miniatures from ``data.wavio.write_dataset`` or a real
+    corpus scanned by ``data.wavio.scan_dataset``).
+
+    Reads go through the block-coalesced
+    :class:`~repro_torch.data.wavio.BlockReader` (indices grouped by
+    file, contiguous runs merged into single reads, handles cached in a
+    bounded LRU), which is bitwise-identical to the per-record
+    :class:`~repro_torch.data.wavio.WavRecordReader` the tests hold it
+    against.  ``calibration`` applies a per-file sensitivity gain.
+
+    ``payload_dtype="int16"`` (or ``.payload("int16")`` on the job)
+    ships raw PCM straight from ``readframes``, with the calibration in
+    the :meth:`scales` sidecar instead of a host multiply.
+    """
+
+    def __init__(self, root: str, calibration=None,
+                 payload_dtype: str = "float32"):
+        self.root = root
+        self.calibration = calibration
+        self.payload_dtype = payload_dtype
+        self._reader = None
+
+    def with_payload(self, dtype: str) -> "WavSource":
+        if dtype == self.payload_dtype:
+            return self
+        # copy, don't mutate: a source reused across jobs must not
+        # inherit another job's transport setting
+        new = copy.copy(self)
+        new.payload_dtype = dtype
+        new._reader = None          # bind() attaches the right-mode reader
+        return new
+
+    def bind(self, m: DatasetManifest, p: DepamParams) -> "WavSource":
+        self._reader = BlockReader(self.root, m,
+                                   calibration=self.calibration,
+                                   raw=self.payload_dtype == "int16")
+        return self
+
+    def fetch(self, indices: np.ndarray) -> np.ndarray:
+        if self._reader is None:
+            raise RuntimeError("WavSource used before bind()")
+        out = self._reader(indices)
+        return out if out.dtype == self._reader.dtype \
+            else np.asarray(out, self._reader.dtype)
+
+    def scales(self, indices: np.ndarray) -> np.ndarray:
+        if self._reader is None:
+            raise RuntimeError("WavSource used before bind()")
+        return self._reader.scales_for(indices)
+
+    def close(self) -> None:
+        if self._reader is not None and hasattr(self._reader, "close"):
+            self._reader.close()
+
+
 def as_source(src) -> Source:
-    """Normalize a user-supplied source: ``None`` -> synthesis, a
-    callable -> ``ReaderSource``, a ``Source`` -> itself."""
+    """Normalize a user-supplied source (see module docstring)."""
     if src is None:
         return SynthSource()
     if isinstance(src, Source):
         return src
+    if isinstance(src, str):
+        return WavSource(src)
     if callable(src):
         return ReaderSource(src)
-    raise TypeError(f"cannot interpret {type(src).__name__} as a Source "
-                    f"(wav directories come with WavSource, not yet "
-                    f"ported)")
+    raise TypeError(f"cannot interpret {type(src).__name__} as a Source")

@@ -60,13 +60,14 @@ def welch_psd(x: torch.Tensor, p: DepamParams) -> torch.Tensor:
     return torch.mean(frame_psd(x, p), dim=-2)
 
 
-def _db(power: torch.Tensor, p: DepamParams) -> torch.Tensor:
+def db(power: torch.Tensor, p: DepamParams) -> torch.Tensor:
+    """Power -> dB re 1 uPa: 10*log10(max(power, 1e-30)) + gain."""
     return 10.0 * torch.log10(torch.clamp(power, min=1e-30)) + p.gain_db
 
 
 def spl_wideband(psd: torch.Tensor, p: DepamParams) -> torch.Tensor:
     """Wideband SPL in dB re 1 uPa: 10*log10(integral of PSD df) + gain."""
-    return _db(torch.sum(psd, dim=-1) * p.df, p)
+    return db(torch.sum(psd, dim=-1) * p.df, p)
 
 
 def tol_levels(psd: torch.Tensor, band_matrix: torch.Tensor,
@@ -75,7 +76,7 @@ def tol_levels(psd: torch.Tensor, band_matrix: torch.Tensor,
 
     band_matrix: (n_bins, n_bands) fractional membership (see core.tol).
     """
-    return _db((psd @ band_matrix) * p.df, p)
+    return db((psd @ band_matrix) * p.df, p)
 
 
 def record_features(record: torch.Tensor, p: DepamParams,
@@ -92,4 +93,4 @@ def record_features(record: torch.Tensor, p: DepamParams,
 def ltsa(records: torch.Tensor, p: DepamParams) -> torch.Tensor:
     """Long-Term Spectral Average: (n_records, record_size) ->
     (n_records, n_bins) in dB."""
-    return _db(welch_psd(records, p), p)
+    return db(welch_psd(records, p), p)

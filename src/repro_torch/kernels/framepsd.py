@@ -1,21 +1,26 @@
-"""K1: fused per-record Welch PSD (direct DFT form), frames never stored.
+"""K1 and K5: the direct-DFT PSD kernels of paper set 1.
 
 For the small analysis windows of paper set 1 (nfft = window = 256,
 hop 128) the one-sided real DFT is a direct product with window-folded
 cos/sin matrices, so the whole chain
 
-    frames -> window -> rfft -> |.|^2 -> density scale -> frame mean
+    frames -> window -> rfft -> |.|^2 -> density scale [-> frame mean]
 
-runs in one kernel and the per-frame spectra never reach device
-memory.  Replaces the TPU kernel ``src/repro/kernels/framepsd.py:239``
-(``welch_psd``); the CUDA source (``csrc/framepsd.cu``) says what bounds
-it on the card and how its design answers.  The per-frame variant
-(``frame_psd``, the spectrogram) comes with the percentiles/spd slice.
+runs in one kernel.  Two variants share the kernel's staging and DFT
+tile (``csrc/framepsd.cu``):
 
-Raw int16 PCM is accepted (dtype drives the dispatch) with a per-record
-decode scale: the kernel converts and scales the samples as it stages
-them, before any product — the host decode's exact rounding, so the
-int16 and float32 calls give the same bits.
+  * K1 ``welch_psd`` — the per-record Welch PSD; the per-frame spectra
+    never reach device memory.  Replaces the TPU kernel
+    ``src/repro/kernels/framepsd.py:239``.
+  * K5 ``frame_psd`` — the per-frame PSD (the spectrogram behind
+    ``percentiles``, ``spd`` and detection).  Replaces the TPU kernel
+    ``src/repro/kernels/framepsd.py:130``.
+
+The CUDA source says what bounds them on the card and how the design
+answers.  Raw int16 PCM is accepted (dtype drives the dispatch) with a
+per-record decode scale: the kernel converts and scales the samples as
+it stages them, before any product — the host decode's exact rounding,
+so the int16 and float32 calls give the same bits.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from .common import (LaunchCounter, check_cuda, decode_scales, dequantize,
                      dft_matrices)
 
 LAUNCHES = LaunchCounter("welch_psd")
+LAUNCHES_FRAME = LaunchCounter("frame_psd")
 
 
 def _fold_matrices(p, dtype=np.float32):
@@ -50,28 +56,36 @@ def _bin_scale(p, extra: float = 1.0, dtype=np.float32) -> np.ndarray:
     return (w * periodogram_scale(p) * extra).astype(dtype)[None, :]
 
 
-def welch_psd_plain(records: torch.Tensor, p,
-                    scales: torch.Tensor | None = None) -> torch.Tensor:
-    """The plain PyTorch version: each frame's window-length dot with the
-    folded DFT matrices, |.|^2, summed over frames, one scale."""
-    x = dequantize(records, scales) if records.dtype == torch.int16 \
-        else records.to(torch.float32)
+def _frame_power(x: torch.Tensor, p,
+                 scales: torch.Tensor | None) -> torch.Tensor:
+    """re^2 + im^2 of every frame's window-length dot with the folded
+    DFT matrices, unscaled: the arithmetic both plain versions share."""
+    xf = dequantize(x, scales) if x.dtype == torch.int16 \
+        else x.to(torch.float32)
     c, s = _fold_matrices(p)
-    c = torch.as_tensor(c.reshape(p.window_size, p.n_bins), device=x.device)
-    s = torch.as_tensor(s.reshape(p.window_size, p.n_bins), device=x.device)
-    frames = frame_signal(x, p.window_size, p.hop)
+    c = torch.as_tensor(c.reshape(p.window_size, p.n_bins), device=xf.device)
+    s = torch.as_tensor(s.reshape(p.window_size, p.n_bins), device=xf.device)
+    frames = frame_signal(xf, p.window_size, p.hop)
     re = frames @ c
     im = frames @ s
-    total = (re * re + im * im).sum(dim=-2)
-    fpr = frames.shape[-2]
-    return total * torch.as_tensor(_bin_scale(p, 1.0 / fpr)[0],
-                                   device=x.device)
+    return re * re + im * im
+
+
+def welch_psd_plain(records: torch.Tensor, p,
+                    scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version of K1: the frames' folded-DFT power,
+    summed over frames, one scale."""
+    power = _frame_power(records, p, scales)
+    fpr = power.shape[-2]
+    return power.sum(dim=-2) * torch.as_tensor(_bin_scale(p, 1.0 / fpr)[0],
+                                               device=power.device)
 
 
 @functools.lru_cache(maxsize=16)
 def _device_constants(p, fpr: int, device: str):
     """Folded DFT matrices zero-padded to whole warps of bins, and the
-    per-bin scale, on the device (built once per configuration)."""
+    per-bin scale with the Welch mean's 1/fpr folded in (K5 passes
+    fpr=1), on the device (built once per configuration)."""
     c, s = _fold_matrices(p)
     cols = -(-p.n_bins // 32) * 32
     pad = ((0, 0), (0, cols - p.n_bins))
@@ -128,3 +142,63 @@ def welch_psd(records: torch.Tensor, p,
     _build.check(err, "welch_psd")
     LAUNCHES.hit()
     return out
+
+
+def frame_psd_plain(x: torch.Tensor, p,
+                    scales: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version of K5: each frame's folded-DFT power
+    times the bin scale."""
+    power = _frame_power(x, p, scales)
+    return power * torch.as_tensor(_bin_scale(p)[0], device=power.device)
+
+
+def frame_psd(x: torch.Tensor, p,
+              scales: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-frame one-sided PSD: (n_samples,) -> (n_frames, n_bins) or
+    (n_records, record_size) -> (n_records, frames_per_record, n_bins).
+    ``x`` may be raw int16 PCM (``scales``: one decode scale per record,
+    a scalar for 1-D input; None = plain full-scale decode)."""
+    if x.device.type == "cpu":
+        return frame_psd_plain(x, p, scales)
+    if x.dim() not in (1, 2):
+        raise ValueError(f"x must be 1-D or 2-D, got {tuple(x.shape)}")
+    check_cuda(x, "x", (torch.float32, torch.int16), x.dim())
+    if p.window_size % p.hop:
+        raise ValueError("the direct frame-PSD kernel requires "
+                         "hop | window_size")
+    if p.n_bins > 9 * 32:
+        raise ValueError(f"the direct frame-PSD kernel takes at most 288 "
+                         f"bins (nfft <= 574), got {p.n_bins}")
+    records = x if x.dim() == 2 else x[None]
+    if records.stride(1) != 1:
+        records = records.contiguous()
+    n_rec, n = records.shape
+    fpr = (n - p.window_size) // p.hop + 1
+    if fpr < 1:
+        raise ValueError(f"records of {n} samples hold no frame of "
+                         f"{p.window_size}")
+    dev = records.device
+    c, s, scale = _device_constants(p, 1, str(dev))
+    out = torch.empty((n_rec, fpr, p.n_bins), dtype=torch.float32,
+                      device=dev)
+    tail = (c.data_ptr(), s.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            n_rec, fpr, p.window_size, p.hop, p.n_bins)
+    tail_types = (_build.P,) * 4 + (_build.I,) * 5 + (_build.P,)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if records.dtype == torch.int16:
+            if scales is not None:
+                scales = torch.as_tensor(scales, dtype=torch.float32,
+                                         device=dev).reshape(-1)
+            sq = decode_scales(scales, n_rec, dev)
+            fn = _build.function("depam_frame_psd_i16", _build.P, _build.L,
+                                 _build.L, _build.P, *tail_types)
+            err = fn(records.data_ptr(), records.stride(0), n,
+                     sq.data_ptr(), *tail, stream)
+        else:
+            fn = _build.function("depam_frame_psd_f32", _build.P, _build.L,
+                                 _build.L, *tail_types)
+            err = fn(records.data_ptr(), records.stride(0), n, *tail, stream)
+    _build.check(err, "frame_psd")
+    LAUNCHES_FRAME.hit()
+    return out if x.dim() == 2 else out[0]

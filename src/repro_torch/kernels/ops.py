@@ -2,10 +2,11 @@
 
 ``psd_backend`` picks the kernel for a parameter set, by the reference's
 rule:
-  * direct   — fused frame+window+DFT Welch (framepsd), nfft <= 512 and
-               hop | window_size.  Paper set 1.
-  * ct       — two-stage Cooley-Tukey (ct_rfft) then the frame mean
-               (welch), large power-of-two nfft.  Paper set 2.
+  * direct   — fused frame+window+DFT (framepsd: K1 Welch, K5 per
+               frame), nfft <= 512 and hop | window_size.  Paper set 1.
+  * ct       — two-stage Cooley-Tukey (ct_rfft, K2) per frame, then the
+               frame mean (welch, K3) for Welch; large power-of-two
+               nfft.  Paper set 2.
   * xla      — the plain ``core.spectra`` path (torch.fft) for anything
                else (the name is the reference's).
 
@@ -13,15 +14,16 @@ Every entry point takes float32 or raw int16 PCM (with the per-record
 ``scales`` sidecar): the kernels dequantize as they load, the plain path
 dequantizes first, all bitwise-identical to feeding host-decoded float32.
 On a CUDA tensor the kernels launch; on a CPU tensor each kernel module
-runs its plain PyTorch version.
+runs its plain PyTorch version.  ``detect_events`` (K6) scans a
+frame-SPL trace for loud events.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import spectra
-from . import common, ct_rfft, framepsd, tol as tol_kernel, \
-    welch as welch_kernel
+from . import common, ct_rfft, events as events_kernel, framepsd, \
+    tol as tol_kernel, welch as welch_kernel
 
 
 def psd_backend(p) -> str:
@@ -47,10 +49,7 @@ def frame_psd(x: torch.Tensor, p, backend: str | None = None,
     backend = backend or psd_backend(p)
     quantized = x.dtype == torch.int16
     if backend == "direct":
-        raise NotImplementedError(
-            "the per-frame direct kernel (framepsd.frame_psd, the "
-            "spectrogram) is not ported yet: ROADMAP.md queue A 'Per-frame "
-            "products' / queue B item 5")
+        return framepsd.frame_psd(x, p, scales=scales)
     if backend == "ct":
         frames = spectra.frame_signal(x, p.window_size, p.hop)
         shape = frames.shape
@@ -84,7 +83,26 @@ def tol_levels(psd: torch.Tensor, band_matrix: torch.Tensor,
     return tol_kernel.tol_levels(psd, band_matrix, p)
 
 
+def detect_events(frame_spl: torch.Tensor, frame_peak_bin: torch.Tensor, p,
+                  kernel: bool = True):
+    """Threshold + compaction over per-frame wideband SPL (dB).
+
+    frame_spl / frame_peak_bin: (n_records, frames_per_record) float32 /
+    int32.  The knobs come off ``p`` (DepamParams).  Returns ``(counts
+    (n,) int32, rows (n, event_capacity, 4) float32)`` — see
+    kernels/events.py for the encoding.  ``kernel=False`` runs the plain
+    version on any device; both give the same bits."""
+    fn = events_kernel.detect_events if kernel \
+        else events_kernel.detect_events_plain
+    return fn(frame_spl, frame_peak_bin,
+              threshold_db=p.event_threshold_db,
+              hysteresis_db=p.event_hysteresis_db,
+              min_len=p.event_min_len, capacity=p.event_capacity)
+
+
 def launch_counters() -> dict[str, "common.LaunchCounter"]:
     """Every kernel's launch counter, by kernel name."""
-    return {c.name: c for c in (framepsd.LAUNCHES, ct_rfft.LAUNCHES,
-                                welch_kernel.LAUNCHES, tol_kernel.LAUNCHES)}
+    return {c.name: c for c in (
+        framepsd.LAUNCHES, ct_rfft.LAUNCHES, welch_kernel.LAUNCHES,
+        tol_kernel.LAUNCHES, framepsd.LAUNCHES_FRAME,
+        events_kernel.LAUNCHES)}

@@ -31,6 +31,8 @@ def test_import_leaves_out_jax_and_reference():
         "import sys\n"
         "import repro_torch, repro_torch.api, repro_torch.kernels.ops\n"
         "import repro_torch.core.pipeline, repro_torch.compat\n"
+        "import repro_torch.kernels.events, repro_torch.data.wavio\n"
+        "import repro_torch.meta, repro_torch.faults.errors\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -45,6 +47,11 @@ def test_source_scan_finds_no_jax_or_reference_import():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {"src/repro_torch/kernels/events.py",
+            "src/repro_torch/data/wavio.py",
+            "src/repro_torch/meta/instrument.py",
+            "src/repro_torch/meta/timestamps.py"} <= names
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
@@ -90,7 +97,7 @@ def test_build_dir_stays_in_checkout_or_named_place(monkeypatch, tmp_path):
 def test_launch_counters_stay_zero_on_cpu():
     counters = ops.launch_counters()
     assert set(counters) == {"welch_psd", "ct_frame_psd", "welch_mean",
-                             "tol_levels"}
+                             "tol_levels", "frame_psd", "detect_events"}
     before = {k: c.count for k, c in counters.items()}
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.standard_normal((2, P.record_size)),
@@ -103,6 +110,11 @@ def test_launch_counters_stay_zero_on_cpu():
     x2 = torch.as_tensor(rng.standard_normal((2, p2.record_size)),
                          dtype=torch.float32)
     ops.welch_psd(x2, p2)                       # ct + welch_mean
+    fp = ops.frame_psd(x, P)                    # K5's plain version
+    spl = torch.sum(fp, dim=-1)
+    ops.detect_events(spl, torch.argmax(fp, dim=-1).to(torch.int32), P)
     from repro_torch import api
     api.job(M, P).device("cpu").run()
+    (api.job(M, P).features("percentiles", "spd").events(-200.0)
+     .device("cpu").run())
     assert {k: c.count for k, c in counters.items()} == before

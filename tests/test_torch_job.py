@@ -221,7 +221,7 @@ def test_builder_refusals(tmp_path):
     with pytest.raises(ValueError, match="device-synthesized"):
         api.job(m, p).payload("int16").device("cpu").run()
     with pytest.raises(KeyError, match="registered"):
-        api.job(m, p).features("percentiles").device("cpu").run()
+        api.job(m, p).features("no_such_feature").device("cpu").run()
     store = str(tmp_path / "s")
     _port_job("set1").to(store).limit(1).run()
     with pytest.raises(ValueError, match="cannot resume"):
