@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with one CUDA GPU:
 
 It builds the six hand-written CUDA kernels from ``src/repro_torch/
 kernels/csrc`` (nvcc, at first use), holds each against its plain
-PyTorch version at the shapes the paper's paths give it, and drives two
-paths over one 45-minute paper file for both paper parameter sets:
+PyTorch version at the shapes the paper's paths give it -- and K1 and K2
+at every shape the CPU tests give them too -- and drives two paths over
+one 45-minute paper file for both paper parameter sets:
 
   * the main path, ``repro_torch.api.job(m, p).features("welch", "spl",
     "tol", "ltsa")``, checked for float32 == int16 payload bitwise,
@@ -60,6 +61,15 @@ WARMUP, REPS, ROUNDS = 3, 20, 5
 EVENT_THRESHOLD_DB, EVENT_HYSTERESIS_DB = -17.0, 2.0
 BURST_SEC, BURST_AMP = 0.05, 30000.0
 OVERFLOW_RECORD, OVERFLOW_BURSTS = 7, 24      # > event_capacity (16)
+
+# K1 and K2 are also held against their plain versions at every shape the
+# CPU tests give them: (nfft, window, overlap) for K1 -- the FFT route,
+# and one non-power-of-two nfft on the direct tile -- and (nfft, window)
+# for K2.
+SWEEP_K1 = ((128, 128, 0), (256, 256, 128), (256, 256, 192), (128, 128, 64),
+            (512, 384, 288), (256, 128, 64), (320, 320, 160))
+SWEEP_K2 = ((1024, 1024), (2048, 2048), (4096, 4096), (8192, 8192),
+            (1024, 768))
 
 
 def check(cond: bool, what: str) -> None:
@@ -147,7 +157,7 @@ def main() -> int:
     from repro_torch.core import spectra
     from repro_torch.core.manifest import DatasetManifest
     from repro_torch.core.params import (PARAM_SET_1, PARAM_SET_2,
-                                         PCM_DECODE_SCALE)
+                                         PCM_DECODE_SCALE, DepamParams)
     from repro_torch.core.tol import band_matrix
     from repro_torch.core.windows import make_window
     from repro_torch.data.wavio import BlockReader, write_dataset
@@ -215,23 +225,33 @@ def main() -> int:
         b.synchronize()
         return a.elapsed_time(b)
 
+    # The spin's rate, after a first call: that one loads the spin
+    # kernel's module between the two events and would make the spin
+    # look slow, the holds below too short and the queued timings
+    # host-paced.
     spin_cycles = 10_000_000
-    cycles_per_ms = spin_cycles / span_ms(lambda: torch.cuda._sleep(
-        spin_cycles))
+    torch.cuda._sleep(spin_cycles)
+    torch.cuda.synchronize()
+    cycles_per_ms = spin_cycles / statistics.median(
+        span_ms(lambda: torch.cuda._sleep(spin_cycles)) for _ in range(3))
+    print(f"spin: {cycles_per_ms:.0f} cycles per ms")
 
     def time_ms(fn):
-        """(device ms, host ms) per call, medians over ROUNDS.
+        """(device ms, host ms) per call, medians over ROUNDS, and
+        whether any round was host-paced.
 
         Host: wall time of REPS calls with no synchronize, over REPS —
         what one call costs the host to enqueue.  Device: a spin on the
         card holds the stream while the host enqueues REPS calls between
         two events, so the calls run back to back and the span over REPS
-        is device time, not launch cost.  A call that synchronizes
-        itself (a pageable host-to-device copy) stays host-paced."""
+        is device time, not launch cost.  A round is host-paced when the
+        spin has already ended once the last call is enqueued (a call
+        that synchronizes itself, such as a pageable host-to-device
+        copy, always is): its span is then the host's pace."""
         for _ in range(WARMUP):
             fn()
         torch.cuda.synchronize()
-        dev, host = [], []
+        dev, host, paced = [], [], []
         for _ in range(ROUNDS):
             t0 = time.perf_counter()
             for _ in range(REPS):
@@ -240,12 +260,18 @@ def main() -> int:
             torch.cuda.synchronize()
             hold_ms = max(4.0 * REPS * host[-1], 1.0)
             torch.cuda._sleep(int(hold_ms * cycles_per_ms))
-
-            def calls():
-                for _ in range(REPS):
-                    fn()
-            dev.append(span_ms(calls) / REPS)
-        return statistics.median(dev), statistics.median(host)
+            spin_end = torch.cuda.Event()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            spin_end.record()
+            a.record()
+            for _ in range(REPS):
+                fn()
+            paced.append(spin_end.query())
+            b.record()
+            b.synchronize()
+            dev.append(a.elapsed_time(b) / REPS)
+        return statistics.median(dev), statistics.median(host), any(paced)
 
     def max_rel(a, b, floor):
         a, b = a.double(), b.double()
@@ -267,9 +293,11 @@ def main() -> int:
     def record(name, source, replaces, got, want, kernel, plain, library,
                n_bytes, flops, plain_once=False):
         b_ms, b_by = bound_ms(n_bytes, flops)
-        k_ms, k_host = time_ms(kernel)
-        p_ms, p_host = once_ms(plain) if plain_once else time_ms(plain)
-        l_ms, l_host = (None, None) if library is None else time_ms(library)
+        k_ms, k_host, k_paced = time_ms(kernel)
+        p_ms, p_host, p_paced = (*once_ms(plain), True) if plain_once \
+            else time_ms(plain)
+        l_ms, l_host, l_paced = (None, None, False) if library is None \
+            else time_ms(library)
         report.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None,
@@ -280,13 +308,16 @@ def main() -> int:
             "ms": k_ms, "plain_ms": p_ms,
             "plain_timing": ("one call, host-paced wall" if plain_once
                              else "device, queued calls"),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+            "host_paced": {"ms": k_paced, "plain_ms": p_paced,
+                           "library_ms": l_paced}})
         print(f"{name}: device ms={k_ms:.5f} plain_ms={p_ms:.5f}"
               + (" (one call, host-paced wall)" if plain_once else "")
               + f" library_ms={l_ms} bound_ms={b_ms:.5f} ({b_by}, "
               f"{b_ms / k_ms:.1%} of it)")
         print(f"{name}: host ms per call (enqueue): kernel={k_host:.5f} "
-              f"plain={p_host:.5f} library={l_host}")
+              f"plain={p_host:.5f} library={l_host}; host-paced: "
+              f"kernel={k_paced} plain={p_paced} library={l_paced}")
 
     idx8 = np.arange(8)
     # K1 welch_psd: set 1, one step of 8 records
@@ -456,16 +487,67 @@ def main() -> int:
         else:
             # 80 frames a record: the plain loop is short enough for
             # time_ms's queued calls
-            k_ms, k_host = time_ms(
+            k_ms, k_host, k_paced = time_ms(
                 lambda: events.detect_events(spl6, pb6, **ev_kw))
-            p_ms, p_host = time_ms(
+            p_ms, p_host, p_paced = time_ms(
                 lambda: events.detect_events_plain(spl6, pb6, **ev_kw))
             b_ms, b_by = bound_ms(k6_bytes, 0)
             print(f"detect_events {name} {tuple(spl6.shape)}: device "
                   f"ms={k_ms:.5f} plain_ms={p_ms:.5f} bound_ms={b_ms:.7f} "
                   f"({b_by}); host ms per call: kernel={k_host:.5f} "
-                  f"plain={p_host:.5f}")
+                  f"plain={p_host:.5f}; host-paced: kernel={k_paced} "
+                  f"plain={p_paced}")
     del traces
+
+    # -- phase 2b: K1 and K2 at every shape the CPU tests give them --------
+    rng = np.random.default_rng(SEED)
+
+    def pcm_and_scales(shape):
+        q = np.clip(np.rint(rng.standard_normal(shape) * 3000), -32768,
+                    32767).astype(np.int16)
+        sc = (PCM_DECODE_SCALE * rng.uniform(0.5, 2.0, shape[0])).astype(
+            np.float32)
+        return (torch.as_tensor(q, device=dev), torch.as_tensor(sc, device=dev),
+                torch.as_tensor(q.astype(np.float32) * sc[:, None],
+                                device=dev))
+
+    def sweep_params(nfft, window, overlap, n_frames):
+        hop = window - overlap
+        return DepamParams(nfft=nfft, window_size=window,
+                           window_overlap=overlap,
+                           record_size_sec=((n_frames - 1) * hop + window)
+                           / 32768.0)
+
+    for nfft, window, overlap in SWEEP_K1:
+        p = sweep_params(nfft, window, overlap, 1000)
+        q, sc, x = pcm_and_scales((4, p.record_size))
+        got, got_q = framepsd.welch_psd(x, p), framepsd.welch_psd(q, p, sc)
+        err = max_rel(got, framepsd.welch_psd_plain(x, p), 1e-9)
+        torch.cuda.synchronize()
+        print(f"K1 sweep nfft={nfft} window={window} overlap={overlap} "
+              f"{tuple(x.shape)}: max rel err {err:.3e} (tol 1e-4), int16 == "
+              f"float32 bitwise: {torch.equal(got, got_q)}")
+        check(err < 1e-4, f"K1 disagrees with its plain version at {nfft}, "
+              f"{window}, {overlap}")
+        check(torch.equal(got, got_q),
+              f"K1 int16 != float32 at {nfft}, {window}, {overlap}")
+    for nfft, window in SWEEP_K2:
+        p = sweep_params(nfft, window, 0, 2)
+        q, sc, x = pcm_and_scales((300, window))
+        got, got_q = ct_rfft.ct_frame_psd(x, p), ct_rfft.ct_frame_psd(
+            q, p, scales=sc)
+        err = max_rel(got, ct_rfft.ct_frame_psd_plain(x, p), 1e-6)
+        same_n1 = torch.equal(got, ct_rfft.ct_frame_psd(
+            x, p, n1=ct_rfft.default_n1(nfft) // 2))
+        torch.cuda.synchronize()
+        print(f"K2 sweep nfft={nfft} window={window} {tuple(x.shape)}: max "
+              f"rel err {err:.3e} (tol 1e-3, floor 1e-6), int16 == float32 "
+              f"bitwise: {torch.equal(got, got_q)}, n1 does not change the "
+              f"bits: {same_n1}")
+        check(err < 1e-3, f"K2 disagrees with its plain version at {nfft}, "
+              f"{window}")
+        check(torch.equal(got, got_q), f"K2 int16 != float32 at {nfft}")
+        check(same_n1, f"K2 result depends on n1 at {nfft}")
 
     # -- phase 3: the main path ---------------------------------------------
     counters = ops.launch_counters()

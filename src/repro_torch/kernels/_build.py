@@ -144,5 +144,6 @@ def check(err: int, what: str) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+U = ctypes.c_uint
 L = ctypes.c_longlong
 F = ctypes.c_float

@@ -8,6 +8,8 @@ through a wrapper: it launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -85,3 +87,20 @@ def check_cuda(t: torch.Tensor, name: str, dtypes: tuple, ndim: int) -> None:
         raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+
+
+def pointers(tensors) -> ctypes.Array:
+    """A C array of the tensors' device pointers (NULL for None), built
+    once per launch plan: the entry points take their constants so."""
+    return (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors))
+
+
+def launch(dev: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` with ``dev`` current and ``stream`` its
+    current stream: a kernel launches on the current device, so the
+    device is switched only when it is not already the current one."""
+    if torch.cuda.current_device() != dev.index:
+        with torch.cuda.device(dev):
+            return launch(dev, fn, *args)
+    return fn(*args, torch.cuda.current_stream(dev).cuda_stream)

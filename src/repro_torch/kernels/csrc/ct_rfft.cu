@@ -1,202 +1,166 @@
-// K2: one-sided PSD of framed data by a two-stage Cooley-Tukey split,
-// N = n1 * n2, both stages as small dense products.
+// K2: one-sided PSD of framed data, (n_frames, window) -> (n_frames,
+// nfft/2 + 1), by a radix-8/4 FFT (fft.cuh).
 //
 // Replaces the TPU kernel src/repro/kernels/ct_rfft.py:122
-// (ct_frame_psd, pallas_call at :172, _chain :92-118, constants :40-73).
+// (ct_frame_psd, pallas_call at :172).  The TPU kernel splits nfft =
+// n1 * n2 into two small dense DFT products, the shape of the MXU.  On
+// Hopper those products run on the f32 FMA pipes (~2.16 MFLOP a frame
+// at nfft 4096, ~17x an FFT), so this kernel is an FFT instead; n1
+// remains a parameter of the Python function and no longer changes
+// the arithmetic.
 //
-// With n = n2_count*j1 + j2 and bin k = k1 + n1*k2:
-//   A[j1, j2] = (w * x)[n2_count*j1 + j2]              (row-major reshape)
-//   Y[k1, j2] = sum_j1 A[j1, j2] W_n1^(j1 k1)          stage 1 (real input)
-//   Z[k1, j2] = Y[k1, j2] W_N^(k1 j2)                  twiddle
-//   X[k1 + n1 k2] = sum_j2 Z[k1, j2] W_n2^(j2 k2)      stage 2, k2 <= n2/2
+// Bound on this card: bytes.  At paper set 2 (nfft 4096) the function
+// reads 16 KB and writes 8 KB a frame; an FFT needs ~2.5 N log2 N =
+// 123 kFLOP, ~5 FLOP/byte, below the f32 ridge of 20 (67 TFLOP/s over
+// 3.35 TB/s).
 //
-// Bound on this card: bytes.  At set 2 (nfft 4096) the function reads
-// 16 KB and writes 8 KB a frame; an FFT needs about 2.5 N log2 N =
-// 123 kFLOP, ~5 FLOP/byte, below the f32 ridge of 20.  This design's
-// two dense stages (n1 = n2 = 64) do ~2.16 MFLOP a frame, ~17x that, so
-// the f32 FMA pipes, not the bytes, limit it: the gap to the bound is
-// the algorithm's.
-//
-// Design: one block of 256 threads per frame.
-//  * The windowed frame A (16 KB at 4096) and the twiddled Z, re and im
-//    (32 KB), live in shared memory (48 KB at 4096; above that the
-//    dynamic-memory opt-in is taken).  The DFT, twiddle and scale
-//    constants (~150 KB at 4096, shared by every block) are read through
-//    L1/L2.
-//  * Stage 1: thread t owns k1 = t % n1 and J columns j2 = t/n1 +
-//    (256/n1)*j.  Per j1 it loads one cos and one sin (coalesced across
-//    lanes) and J samples of A (a shared-memory broadcast: a warp shares
-//    its columns), then does 2J FMAs.
-//  * The twiddle constants are passed transposed, (n2, n1), so the loads
-//    are coalesced, and Z is stored transposed so stage 2 reads it
-//    without bank conflicts.
-//  * Stage 2: thread t owns k1 = t % n1 and J2 output columns k2; per j2
-//    it loads Z re/im (2 shared loads) and J2 cos/sin pairs (broadcast),
-//    then does 4*J2 FMAs.  Output lands in bin order k = k1 + n1*k2:
-//    consecutive lanes write consecutive bins.
-//  * Zero padding (window < nfft) is done while staging.  int16 frames
-//    are converted and multiplied by the frame's decode scale there too,
-//    before the window multiply: the host decode's single rounding.
+// Design: one group of L = nfft/16 lanes per frame (fft.cuh), each lane
+// 8 points a pass.  From nfft 512 up a group is one block (L threads)
+// and one frame: 640 blocks of 256 threads at set 2.  Below, 4 warps
+// of 32/L groups each take 4*32/L frames a block.
+//  * The first pass reads its points straight from device memory:
+//    sample pairs (x[2q], x[2q+1]), decoded, windowed and zero-padded
+//    past `window` as they load, so the frame is read once and never
+//    staged.  int16 frames are converted and multiplied by the frame's
+//    decode scale first (depam::sample): the host decode's single
+//    rounding, so int16 and float32 calls give the same bits.
+//  * The other passes and the split exchange points through one
+//    buffer of nfft floats a frame in shared memory (32 KB at nfft
+//    8192), laid out so that no access has a bank conflict.
+//  * Twiddles (~nfft/2 float2), split factors (nfft/2 + 1 float4) and
+//    the bin scale are shared by every block and read through the
+//    read-only path (L1/L2).
+//  * Each lane stores bins l + L t: consecutive lanes write consecutive
+//    bins of the frame's row.
 #include "depam.cuh"
+#include "fft.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-template <int J>
-__host__ __device__ constexpr int stage2_cols() {
-  return J == 1 ? 1 : J / 2 + 1;
+template <int L>
+__host__ __device__ constexpr int block_threads() {
+  return L < 32 ? 128 : L;
 }
 
-template <typename T, int J>
-__global__ void __launch_bounds__(kThreads)
-ct_frame_psd_kernel(const T* __restrict__ x, long long ldx,
-                    const float* __restrict__ frame_scale,
-                    const float* __restrict__ w,
-                    const float* __restrict__ c1,
-                    const float* __restrict__ s1,
-                    const float* __restrict__ tr_t,
-                    const float* __restrict__ ti_t,
-                    const float* __restrict__ c2,
-                    const float* __restrict__ s2,
-                    const float* __restrict__ scale,
-                    float* __restrict__ out, int window, int n1, int n_bins) {
-  constexpr int kN = kThreads * J;
-  constexpr int J2 = stage2_cols<J>();
+// One buffer per warp below 32 lanes, else one per block (one group).
+template <int L>
+__host__ __device__ constexpr int block_floats() {
+  return depam::fft::Group<L>::kFloats
+         * (L < 32 ? block_threads<L>() / 32 : 1);
+}
+
+template <typename T, int L>
+__global__ void __launch_bounds__(L < 32 ? 128 : L)
+ct_fft_psd_kernel(const T* __restrict__ x, long long ldx,
+                  const float* __restrict__ frame_scale,
+                  const float* __restrict__ w,
+                  const float2* __restrict__ tw,
+                  const float4* __restrict__ split,
+                  const float* __restrict__ scale, unsigned radices,
+                  int n_pass, float* __restrict__ out, int n_frames,
+                  int window) {
+  using Grp = depam::fft::Group<L>;
+  constexpr int kFramesPerBlock = block_threads<L>() / L;
   extern __shared__ float smem[];
-  float* a = smem;            // (n1, n2), row-major
-  float* zr = smem + kN;      // (n2, n1), transposed
-  float* zi = smem + 2 * kN;
-  const long long f = blockIdx.x;
-  const int n2 = kN / n1;
-  const int n2h = n2 / 2 + 1;
-  const float fscale = frame_scale != nullptr ? frame_scale[f] : 1.f;
+  const int warp = threadIdx.x / 32;
+  Grp grp;
+  grp.re = smem + (L < 32 ? warp * Grp::kFloats : 0);
+  grp.g = L < 32 ? (threadIdx.x % 32) / L : 0;
+  grp.l = threadIdx.x % L;
+  const long long f =
+      static_cast<long long>(blockIdx.x) * kFramesPerBlock + threadIdx.x / L;
+  const bool live = f < n_frames;
+  const float fscale =
+      live && frame_scale != nullptr ? frame_scale[f] : 1.f;
+  const T* xf = x + (live ? f : 0) * ldx;
 
-  const T* xf = x + f * ldx;
-  for (int i = threadIdx.x; i < kN; i += kThreads) {
-    const float v = i < window ? depam::sample(xf, i, fscale) : 0.f;
-    a[i] = __fmul_rn(v, w[i]);
-  }
-  __syncthreads();
+  auto first = [&](int q) {
+    const int n = 2 * q;
+    float a = 0.f, b = 0.f;
+    if (live && n < window)
+      a = __fmul_rn(depam::sample(xf, n, fscale), w[n]);
+    if (live && n + 1 < window)
+      b = __fmul_rn(depam::sample(xf, n + 1, fscale), w[n + 1]);
+    return make_float2(a, b);
+  };
+  const int rot = grp.run(first, radices, n_pass, tw);
 
-  const int k1 = threadIdx.x % n1;
-  const int col0 = threadIdx.x / n1;
-  const int cstep = kThreads / n1;
-
-  float yr[J], yi[J];
+  float pw[9];
+  grp.power(rot, split, pw);
+  if (!live) return;
+  float* of = out + f * (Grp::M + 1);
 #pragma unroll
-  for (int j = 0; j < J; ++j) yr[j] = yi[j] = 0.f;
-  for (int j1 = 0; j1 < n1; ++j1) {
-    const float cv = c1[j1 * n1 + k1];
-    const float sv = s1[j1 * n1 + k1];
-    const float* arow = a + j1 * n2;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const float av = arow[col0 + cstep * j];
-      yr[j] = fmaf(cv, av, yr[j]);
-      yi[j] = fmaf(sv, av, yi[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int j2 = col0 + cstep * j;
-    const float tr = tr_t[j2 * n1 + k1];
-    const float ti = ti_t[j2 * n1 + k1];
-    zr[j2 * n1 + k1] = yr[j] * tr - yi[j] * ti;
-    zi[j2 * n1 + k1] = yr[j] * ti + yi[j] * tr;
-  }
-  __syncthreads();
-
-  float xr[J2], xi[J2];
-  int k2c[J2];
-#pragma unroll
-  for (int j = 0; j < J2; ++j) {
-    xr[j] = xi[j] = 0.f;
-    k2c[j] = min(col0 + cstep * j, n2h - 1);
-  }
-  for (int j2 = 0; j2 < n2; ++j2) {
-    const float zrv = zr[j2 * n1 + k1];
-    const float ziv = zi[j2 * n1 + k1];
-    const float* c2r = c2 + j2 * n2h;
-    const float* s2r = s2 + j2 * n2h;
-#pragma unroll
-    for (int j = 0; j < J2; ++j) {
-      const float cv = c2r[k2c[j]];
-      const float sv = s2r[k2c[j]];
-      xr[j] = fmaf(zrv, cv, xr[j]);
-      xr[j] = fmaf(-ziv, sv, xr[j]);
-      xi[j] = fmaf(zrv, sv, xi[j]);
-      xi[j] = fmaf(ziv, cv, xi[j]);
-    }
-  }
-  float* of = out + f * n_bins;
-#pragma unroll
-  for (int j = 0; j < J2; ++j) {
-    const int k2 = col0 + cstep * j;
-    const int bin = k1 + n1 * k2;
-    if (k2 < n2h && bin < n_bins)
-      of[bin] = (xr[j] * xr[j] + xi[j] * xi[j]) * scale[k2 * n1 + k1];
+  for (int t = 0; t < 9; ++t) {
+    const int k = grp.l + L * t;
+    if (k <= Grp::M) of[k] = pw[t] * scale[k];
   }
 }
 
-template <typename T, int J>
+template <typename T, int L>
 cudaError_t launch(const T* x, long long ldx, const float* frame_scale,
-                   const float* const* consts, float* out, int n_frames,
-                   int window, int n1, int n_bins, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * 3 * kThreads * J;
-  auto kernel = ct_frame_psd_kernel<T, J>;
-  cudaError_t err = depam::allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<n_frames, kThreads, bytes, stream>>>(
-      x, ldx, frame_scale, consts[0], consts[1], consts[2], consts[3],
-      consts[4], consts[5], consts[6], consts[7], out, window, n1, n_bins);
+                   const float* const* consts, unsigned radices, int n_pass,
+                   float* out, int n_frames, int window,
+                   cudaStream_t stream) {
+  constexpr int kThreads = block_threads<L>();
+  constexpr int kFramesPerBlock = kThreads / L;
+  constexpr size_t bytes = sizeof(float) * block_floats<L>();
+  static_assert(bytes <= 49152, "K2 fits the default shared memory");
+  const int blocks = (n_frames + kFramesPerBlock - 1) / kFramesPerBlock;
+  ct_fft_psd_kernel<T, L><<<blocks, kThreads, bytes, stream>>>(
+      x, ldx, frame_scale, consts[0],
+      reinterpret_cast<const float2*>(consts[1]),
+      reinterpret_cast<const float4*>(consts[2]), consts[3], radices, n_pass,
+      out, n_frames, window);
   return cudaGetLastError();
 }
 
+// consts: window (window floats), twiddles (n_twiddles float2), split
+// factors (nfft/2 + 1 float4), bin scale (nfft/2 + 1).  The kernel takes
+// a power-of-two nfft from 256 to 8192 and window <= nfft.
 template <typename T>
 int dispatch(const T* x, long long ldx, const float* frame_scale,
-             const float* const* consts, float* out, int n_frames,
-             int window, int nfft, int n1, int n_bins, void* stream) {
-  if (n_frames <= 0) return 0;
-  if (nfft % kThreads != 0 || n1 < 1 || n1 > kThreads || kThreads % n1 != 0
-      || window > nfft)
+             const float* const* consts, unsigned radices, int n_pass,
+             int n_twiddles, float* out, int n_frames, int window, int nfft,
+             int n_bins, void* stream) {
+  if (window < 1 || window > nfft || n_bins != nfft / 2 + 1
+      || !depam::fft::plan_fits(radices, n_pass, n_twiddles, nfft / 2))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (n_frames <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n2h = nfft / n1 / 2 + 1;
-  const int cstep = kThreads / n1;
-  cudaError_t err;
-  switch (nfft / kThreads) {
-#define DEPAM_J(J)                                                         \
-  case J:                                                                  \
-    if (cstep * stage2_cols<J>() < n2h) return cudaErrorInvalidValue;      \
-    err = launch<T, J>(x, ldx, frame_scale, consts, out, n_frames, window, \
-                       n1, n_bins, st);                                    \
-    break;
-    DEPAM_J(1) DEPAM_J(2) DEPAM_J(4) DEPAM_J(8) DEPAM_J(16) DEPAM_J(32)
-#undef DEPAM_J
+  switch (nfft) {
+#define DEPAM_N(N)                                                       \
+  case N:                                                                \
+    return static_cast<int>(launch<T, N / 16>(x, ldx, frame_scale,       \
+                                              consts, radices, n_pass,   \
+                                              out, n_frames, window, st));
+    DEPAM_N(256) DEPAM_N(512) DEPAM_N(1024) DEPAM_N(2048) DEPAM_N(4096)
+    DEPAM_N(8192)
+#undef DEPAM_N
     default:
-      err = cudaErrorInvalidValue;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
 }
 
 }  // namespace
 
-// consts: window (nfft), c1, s1 (n1, n1), twiddle re/im transposed
-// (n2, n1), c2, s2 (n2, n2/2+1), bin scale (n2/2+1, n1).
 extern "C" int depam_ct_frame_psd_f32(const float* x, long long ldx,
-                                      const float* const* consts, float* out,
+                                      const float* const* consts,
+                                      unsigned radices, int n_pass,
+                                      int n_twiddles, float* out,
                                       int n_frames, int window, int nfft,
-                                      int n1, int n_bins, void* stream) {
-  return dispatch(x, ldx, static_cast<const float*>(nullptr), consts, out,
-                  n_frames, window, nfft, n1, n_bins, stream);
+                                      int n_bins, void* stream) {
+  return dispatch(x, ldx, static_cast<const float*>(nullptr), consts,
+                  radices, n_pass, n_twiddles, out, n_frames, window, nfft,
+                  n_bins, stream);
 }
 
 extern "C" int depam_ct_frame_psd_i16(const int16_t* x, long long ldx,
                                       const float* frame_scale,
-                                      const float* const* consts, float* out,
+                                      const float* const* consts,
+                                      unsigned radices, int n_pass,
+                                      int n_twiddles, float* out,
                                       int n_frames, int window, int nfft,
-                                      int n1, int n_bins, void* stream) {
-  return dispatch(x, ldx, frame_scale, consts, out, n_frames, window, nfft,
-                  n1, n_bins, stream);
+                                      int n_bins, void* stream) {
+  return dispatch(x, ldx, frame_scale, consts, radices, n_pass, n_twiddles,
+                  out, n_frames, window, nfft, n_bins, stream);
 }

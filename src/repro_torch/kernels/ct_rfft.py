@@ -1,22 +1,23 @@
-"""K2: radix-(n1 x n2) Cooley-Tukey power spectrum for large nfft.
+"""K2: per-frame one-sided power spectrum for large nfft.
 
-For paper set 2 (nfft = window = 4096, no overlap) a direct DFT costs
-4*N*(N/2+1) ~ 33.6 MFLOP a frame; the split 4096 = 64*64 into two small
-dense products and a twiddle costs ~2.2 MFLOP.  Derivation (n = n2*j1 +
-j2, k = k1 + n1*k2):
+The reference (and this module's plain version) splits nfft = n1*n2
+into two small dense products and a twiddle, the TPU's shape
+(n = n2*j1 + j2, k = k1 + n1*k2):
 
     A[j1, j2]   = (w * x)[n2*j1 + j2]
     Y[k1, j2]   = sum_j1 A[j1, j2] W_n1^(j1 k1)       stage 1
     Z[k1, j2]   = Y[k1, j2] * W_N^(k1 j2)             twiddle
     X[k1+n1*k2] = sum_j2 Z[k1, j2] W_n2^(j2 k2)       stage 2, k2 <= n2/2
 
-Replaces the TPU kernel ``src/repro/kernels/ct_rfft.py:122``
-(``ct_frame_psd``); the CUDA source (``csrc/ct_rfft.cu``) says what
-bounds it on the card and how its design answers.
+The CUDA kernel (``csrc/ct_rfft.cu``) computes the same function by a
+radix-8/4 FFT (``csrc/fft.cuh``, plan in ``fftplan.py``), so its result
+does not depend on ``n1``; the source says what bounds it on the card
+and how its design answers.  Replaces the TPU kernel
+``src/repro/kernels/ct_rfft.py:122`` (``ct_frame_psd``).
 """
 from __future__ import annotations
 
-import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -24,8 +25,9 @@ import torch
 
 from repro_torch.core.spectra import np_onesided_weights, periodogram_scale
 from repro_torch.core.windows import np_window
-from . import _build
-from .common import LaunchCounter, check_cuda, decode_scales
+from . import _build, fftplan
+from .common import LaunchCounter, check_cuda, decode_scales, launch, \
+    pointers
 
 LAUNCHES = LaunchCounter("ct_frame_psd")
 
@@ -99,14 +101,37 @@ def ct_frame_psd_plain(frames: torch.Tensor, p, n1: int | None = None,
     return power.reshape(x.shape[0], -1)[:, : p.n_bins]
 
 
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """Everything a launch needs that depends only on the configuration
+    and the device: built once, then each call allocates its output and
+    passes pointers."""
+    consts: tuple               # device tensors the pointers point into
+    mid: tuple                  # (pointer array, radices, passes, twiddles)
+    tail: tuple                 # (window, nfft, n_bins)
+    f32: object
+    i16: object
+
+
 @functools.lru_cache(maxsize=16)
-def _device_constants(p, n1: int, device: str):
-    """The kernel's constants on the device: the window flat and
-    zero-padded to nfft, the twiddles transposed to (n2, n1)."""
-    wmat, c1, s1, tr, ti, c2, s2, scale = _constants(p, n1, p.nfft // n1)
-    arrays = (wmat.reshape(-1), c1, s1, tr.T, ti.T, c2, s2, scale)
-    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
-                 for a in arrays)
+def _plan(p, device: torch.device) -> _Plan:
+    fp = fftplan.plan(p.nfft)
+    w = np_window(p.window, p.window_size).astype(np.float32)
+    scale = (np_onesided_weights(p.nfft)
+             * periodogram_scale(p)).astype(np.float32)
+    consts = tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
+                   for a in (w, fp.twiddles, fp.split, scale))
+    tail_types = (_build.P, _build.U, _build.I, _build.I, _build.P,
+                  _build.I, _build.I, _build.I, _build.I, _build.P)
+    return _Plan(
+        consts=consts,
+        mid=(pointers(consts), fp.packed, len(fp.radices),
+             len(fp.twiddles)),
+        tail=(p.window_size, p.nfft, p.n_bins),
+        f32=_build.function("depam_ct_frame_psd_f32", _build.P, _build.L,
+                            *tail_types),
+        i16=_build.function("depam_ct_frame_psd_i16", _build.P, _build.L,
+                            _build.P, *tail_types))
 
 
 def ct_frame_psd(frames: torch.Tensor, p, n1: int | None = None,
@@ -115,7 +140,8 @@ def ct_frame_psd(frames: torch.Tensor, p, n1: int | None = None,
     (n_frames, n_bins).  Accepts raw int16 PCM frames (``scales``:
     per-frame decode scales, (n_frames,); None = plain full-scale
     decode).  The frame rows may be a strided view (``unfold``): only
-    the sample axis must be contiguous."""
+    the sample axis must be contiguous.  On the card ``n1`` is checked
+    as the reference checks it but does not change the result."""
     if frames.device.type == "cpu":
         return ct_frame_psd_plain(frames, p, n1, scales)
     check_cuda(frames, "frames", (torch.float32, torch.int16), 2)
@@ -124,6 +150,9 @@ def ct_frame_psd(frames: torch.Tensor, p, n1: int | None = None,
     if nfft % 256 or 256 % n1 or nfft % n1 or (nfft // 256 == 1 and n1 > 128):
         raise ValueError(f"the CT kernel takes nfft a multiple of 256 and n1 "
                          f"dividing 256, got nfft={nfft}, n1={n1}")
+    if nfft > 8192 or nfft & (nfft - 1):
+        raise ValueError(f"the CT kernel takes a power-of-two nfft from 256 "
+                         f"to 8192, got {nfft}")
     if frames.shape[1] != p.window_size:
         raise ValueError(f"frames have {frames.shape[1]} samples, params "
                          f"say window_size={p.window_size}")
@@ -131,25 +160,16 @@ def ct_frame_psd(frames: torch.Tensor, p, n1: int | None = None,
         frames = frames.contiguous()
     n_frames = frames.shape[0]
     dev = frames.device
-    consts = _device_constants(p, n1, str(dev))
-    ptrs = (ctypes.c_void_p * 8)(*(c.data_ptr() for c in consts))
+    plan = _plan(p, dev)
     out = torch.empty((n_frames, p.n_bins), dtype=torch.float32, device=dev)
-    tail = (out.data_ptr(), n_frames, p.window_size, nfft, n1, p.n_bins)
-    tail_types = (_build.P, _build.I, _build.I, _build.I, _build.I,
-                  _build.I, _build.P)
-    arr = ctypes.POINTER(ctypes.c_void_p)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if frames.dtype == torch.int16:
-            sq = decode_scales(scales, n_frames, dev)
-            fn = _build.function("depam_ct_frame_psd_i16", _build.P, _build.L,
-                                 _build.P, arr, *tail_types)
-            err = fn(frames.data_ptr(), frames.stride(0), sq.data_ptr(),
-                     ptrs, *tail, stream)
-        else:
-            fn = _build.function("depam_ct_frame_psd_f32", _build.P, _build.L,
-                                 arr, *tail_types)
-            err = fn(frames.data_ptr(), frames.stride(0), ptrs, *tail, stream)
+    if frames.dtype == torch.int16:
+        sq = decode_scales(scales, n_frames, dev)
+        err = launch(dev, plan.i16, frames.data_ptr(), frames.stride(0),
+                     sq.data_ptr(), *plan.mid, out.data_ptr(), n_frames,
+                     *plan.tail)
+    else:
+        err = launch(dev, plan.f32, frames.data_ptr(), frames.stride(0),
+                     *plan.mid, out.data_ptr(), n_frames, *plan.tail)
     _build.check(err, "ct_frame_psd")
     LAUNCHES.hit()
     return out

@@ -1,22 +1,24 @@
-"""K1 and K5: the direct-DFT PSD kernels of paper set 1.
+"""K1 and K5: the fused PSD kernels of paper set 1.
 
 For the small analysis windows of paper set 1 (nfft = window = 256,
-hop 128) the one-sided real DFT is a direct product with window-folded
-cos/sin matrices, so the whole chain
+hop 128) the whole chain
 
     frames -> window -> rfft -> |.|^2 -> density scale [-> frame mean]
 
-runs in one kernel.  Two variants share the kernel's staging and DFT
-tile (``csrc/framepsd.cu``):
+runs in one kernel that reads the signal once (``csrc/framepsd.cu``):
 
   * K1 ``welch_psd`` — the per-record Welch PSD; the per-frame spectra
-    never reach device memory.  Replaces the TPU kernel
-    ``src/repro/kernels/framepsd.py:239``.
+    never reach device memory.  A radix-8/4 FFT per frame
+    (``csrc/fft.cuh``, plan in ``fftplan.py``) for a power-of-two nfft
+    from 128 to 512, the window-folded direct DFT for any other nfft.
+    Replaces the TPU kernel ``src/repro/kernels/framepsd.py:239``.
   * K5 ``frame_psd`` — the per-frame PSD (the spectrogram behind
-    ``percentiles``, ``spd`` and detection).  Replaces the TPU kernel
+    ``percentiles``, ``spd`` and detection), by the window-folded
+    direct DFT.  Replaces the TPU kernel
     ``src/repro/kernels/framepsd.py:130``.
 
-The CUDA source says what bounds them on the card and how the design
+The plain versions compute the reference's folded direct DFT.  The CUDA
+source says what bounds the kernels on the card and how the design
 answers.  Raw int16 PCM is accepted (dtype drives the dispatch) with a
 per-record decode scale: the kernel converts and scales the samples as
 it stages them, before any product — the host decode's exact rounding,
@@ -24,6 +26,8 @@ so the int16 and float32 calls give the same bits.
 """
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -32,9 +36,9 @@ import torch
 from repro_torch.core.spectra import (frame_signal, np_onesided_weights,
                                       periodogram_scale)
 from repro_torch.core.windows import np_window
-from . import _build
+from . import _build, fftplan
 from .common import (LaunchCounter, check_cuda, decode_scales, dequantize,
-                     dft_matrices)
+                     dft_matrices, launch, pointers)
 
 LAUNCHES = LaunchCounter("welch_psd")
 LAUNCHES_FRAME = LaunchCounter("frame_psd")
@@ -96,6 +100,55 @@ def _device_constants(p, fpr: int, device: str):
                  for a in (c, s, scale))
 
 
+@dataclasses.dataclass(frozen=True)
+class _WelchPlan:
+    """What a K1 launch needs that depends only on the configuration,
+    the record length and the device: built once (the C side picks the
+    route by shape and raises the kernels' shared-memory limit), then
+    each call allocates its scratch and output and passes pointers."""
+    consts: tuple               # device tensors the pointers point into
+    mid: tuple                  # (pointer array, radices, passes, twiddles)
+    tail: tuple                 # (frames, window, hop, nfft, n_bins)
+    n_chunks: int               # K1 blocks per record
+    cols: int                   # columns of a block's partial
+    f32: object
+    i16: object
+
+
+@functools.lru_cache(maxsize=16)
+def _welch_plan(p, n: int, device: torch.device) -> _WelchPlan:
+    fpr = (n - p.window_size) // p.hop + 1
+    route, block, cols = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    ip = ctypes.POINTER(ctypes.c_int)
+    fn = _build.function("depam_welch_psd_plan", _build.I, _build.I,
+                         _build.I, _build.I, ip, ip, ip)
+    with torch.cuda.device(device):
+        err = fn(p.nfft, p.window_size, p.hop, p.n_bins, ctypes.byref(route),
+                 ctypes.byref(block), ctypes.byref(cols))
+    _build.check(err, "welch_psd plan")
+    if route.value:
+        fp = fftplan.plan(p.nfft)
+        w = np_window(p.window, p.window_size).astype(np.float32)
+        scale = _bin_scale(p, extra=1.0 / fpr)[0]
+        consts = (None, None) + tuple(
+            torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in (scale, w, fp.twiddles, fp.split))
+        mid = (fp.packed, len(fp.radices), len(fp.twiddles))
+    else:
+        consts = _device_constants(p, fpr, str(device)) + (None,) * 3
+        mid = (0, 0, 0)
+    tail_types = (_build.P, _build.U, _build.I, _build.I, _build.P,
+                  _build.P) + (_build.I,) * 6 + (_build.P,)
+    return _WelchPlan(
+        consts=consts, mid=(pointers(consts),) + mid,
+        tail=(fpr, p.window_size, p.hop, p.nfft, p.n_bins),
+        n_chunks=-(-fpr // block.value), cols=cols.value,
+        f32=_build.function("depam_welch_psd_f32", _build.P, _build.L,
+                            _build.L, *tail_types),
+        i16=_build.function("depam_welch_psd_i16", _build.P, _build.L,
+                            _build.L, _build.P, *tail_types))
+
+
 def welch_psd(records: torch.Tensor, p,
               scales: torch.Tensor | None = None) -> torch.Tensor:
     """Per-record Welch PSD, (n_records, record_size) -> (n_records,
@@ -112,33 +165,23 @@ def welch_psd(records: torch.Tensor, p,
     if records.stride(1) != 1:
         records = records.contiguous()
     n_rec, n = records.shape
-    fpr = (n - p.window_size) // p.hop + 1
-    if fpr < 1:
+    if n < p.window_size:
         raise ValueError(f"records of {n} samples hold no frame of "
                          f"{p.window_size}")
     dev = records.device
-    c, s, scale = _device_constants(p, fpr, str(dev))
-    block = _build.function("depam_welch_psd_block_frames", _build.I)(
-        p.n_bins)
-    n_chunks = -(-fpr // block)
-    partial = torch.empty((n_rec, n_chunks, c.shape[1]), dtype=torch.float32,
-                          device=dev)
+    plan = _welch_plan(p, n, dev)
+    partial = torch.empty((n_rec, plan.n_chunks, plan.cols),
+                          dtype=torch.float32, device=dev)
     out = torch.empty((n_rec, p.n_bins), dtype=torch.float32, device=dev)
-    tail = (c.data_ptr(), s.data_ptr(), scale.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), n_rec, fpr, p.window_size, p.hop, p.n_bins)
-    tail_types = (_build.P,) * 5 + (_build.I,) * 5 + (_build.P,)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if records.dtype == torch.int16:
-            sq = decode_scales(scales, n_rec, dev)
-            fn = _build.function("depam_welch_psd_i16", _build.P, _build.L,
-                                 _build.L, _build.P, *tail_types)
-            err = fn(records.data_ptr(), records.stride(0), n,
-                     sq.data_ptr(), *tail, stream)
-        else:
-            fn = _build.function("depam_welch_psd_f32", _build.P, _build.L,
-                                 _build.L, *tail_types)
-            err = fn(records.data_ptr(), records.stride(0), n, *tail, stream)
+    if records.dtype == torch.int16:
+        sq = decode_scales(scales, n_rec, dev)
+        err = launch(dev, plan.i16, records.data_ptr(), records.stride(0), n,
+                     sq.data_ptr(), *plan.mid, partial.data_ptr(),
+                     out.data_ptr(), n_rec, *plan.tail)
+    else:
+        err = launch(dev, plan.f32, records.data_ptr(), records.stride(0), n,
+                     *plan.mid, partial.data_ptr(), out.data_ptr(), n_rec,
+                     *plan.tail)
     _build.check(err, "welch_psd")
     LAUNCHES.hit()
     return out

@@ -4,9 +4,10 @@
 rule:
   * direct   — fused frame+window+DFT (framepsd: K1 Welch, K5 per
                frame), nfft <= 512 and hop | window_size.  Paper set 1.
-  * ct       — two-stage Cooley-Tukey (ct_rfft, K2) per frame, then the
-               frame mean (welch, K3) for Welch; large power-of-two
-               nfft.  Paper set 2.
+  * ct       — per-frame PSD (ct_rfft, K2: an FFT on the card, the
+               reference's two-stage Cooley-Tukey in the plain
+               version), then the frame mean (welch, K3) for Welch;
+               large power-of-two nfft.  Paper set 2.
   * xla      — the plain ``core.spectra`` path (torch.fft) for anything
                else (the name is the reference's).
 

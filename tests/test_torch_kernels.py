@@ -20,8 +20,8 @@ from repro.kernels import ct_rfft as jct, framepsd as jfp, ops as jops
 from repro.kernels import ref as jref, tol as jtolk, welch as jwelch
 from repro_torch.core.params import DepamParams, PCM_DECODE_SCALE
 from repro_torch.core.tol import band_matrix
-from repro_torch.kernels import (common, ct_rfft, events, framepsd, ops,
-                                 ref, tol as tolk, welch)
+from repro_torch.kernels import (common, ct_rfft, events, fftplan, framepsd,
+                                 ops, ref, tol as tolk, welch)
 
 
 def _p(nfft, ws, ov, n_frames=10, window="hamming"):
@@ -209,6 +209,53 @@ class TestCooleyTukey:
             assert np.array_equal(a, b)
 
 
+class TestFftPlan:
+    """The tables the K1 and K2 wrappers hand the FFT core: the same
+    Stockham passes as csrc/fft.cuh, in numpy float64, against
+    np.fft.rfft, for every nfft the two kernels take (K1 128-512, K2
+    256-8192)."""
+
+    @staticmethod
+    def run_plan(x, plan):
+        m = len(x) // 2
+        z = x[0::2] + 1j * x[1::2]
+        tw = plan.twiddles[:, 0] + 1j * plan.twiddles[:, 1]
+        ns, off = 1, 0
+        for r in plan.radices:
+            q = m // r
+            j = np.arange(q)
+            k = j % ns
+            v = np.stack([z[j + i * q] for i in range(r)])
+            v[1:] *= tw[off:off + (r - 1) * ns].reshape(r - 1, ns)[:, k]
+            v = np.fft.fft(v, axis=0)
+            z = np.empty(m, complex)
+            for i in range(r):
+                z[(j - k) * r + k + i * ns] = v[i]
+            off += (r - 1) * ns
+            ns *= r
+        assert off == len(tw)
+        kk = np.arange(m + 1)
+        s = plan.split
+        return (z[kk % m] * (s[:, 0] + 1j * s[:, 1])
+                + np.conj(z[(m - kk) % m]) * (s[:, 2] + 1j * s[:, 3]))
+
+    @pytest.mark.parametrize("nfft", [128, 256, 512, 1024, 2048, 4096, 8192])
+    def test_passes_match_rfft(self, nfft):
+        plan = fftplan.plan(nfft, dtype=np.float64)
+        assert plan.radices[0] == 8 and set(plan.radices) <= {4, 8}
+        assert np.prod(plan.radices) == nfft // 2
+        assert plan.packed & 15 == 8
+        x = np.random.default_rng(nfft).standard_normal(nfft)
+        want = np.fft.rfft(x)
+        got = self.run_plan(x, plan)
+        assert np.max(np.abs(got - want)) < 1e-12 * np.max(np.abs(want))
+        f32 = fftplan.plan(nfft)
+        assert f32.radices == plan.radices
+        for a, b in ((f32.twiddles, plan.twiddles), (f32.split, plan.split)):
+            assert a.dtype == np.float32
+            assert np.array_equal(a, b.astype(np.float32))
+
+
 class TestWelchMeanAndTol:
     def test_welch_mean(self):
         fp = np.random.default_rng(17).random((5, 33, 129)).astype(
@@ -294,8 +341,13 @@ class TestOps:
 class TestKernelsOnCard:
     """Each CUDA kernel against its plain version on the card."""
 
-    def test_welch_psd(self, cuda):
-        p, _ = _p(256, 256, 128, n_frames=300)
+    @pytest.mark.parametrize("nfft,ws,ov", [
+        (128, 128, 0), (256, 256, 128), (256, 256, 192), (128, 128, 64),
+        (512, 384, 288), (256, 128, 64),     # the FFT route
+        (320, 320, 160),                     # the direct tile
+    ])
+    def test_welch_psd(self, cuda, nfft, ws, ov):
+        p, _ = _p(nfft, ws, ov, n_frames=300)
         rng = np.random.default_rng(1)
         q = torch.as_tensor(_pcm(rng, (3, p.record_size)), device=cuda)
         sc = torch.full((3,), 3e-4, dtype=torch.float32, device=cuda)
@@ -305,11 +357,20 @@ class TestKernelsOnCard:
                        1e-9) < 1e-4
         assert torch.equal(got, framepsd.welch_psd(q, p, sc))
 
-    def test_ct_frame_psd(self, cuda):
-        p, _ = _p(4096, 4096, 0, n_frames=3)
-        x = torch.randn(7, 4096, device=cuda)
-        assert _maxrel(ct_rfft.ct_frame_psd(x, p).cpu(),
-                       ct_rfft.ct_frame_psd_plain(x, p).cpu(), 1e-6) < 1e-3
+    @pytest.mark.parametrize("nfft,ws", [
+        (1024, 1024), (2048, 2048), (4096, 4096), (8192, 8192), (1024, 768),
+    ])
+    def test_ct_frame_psd(self, cuda, nfft, ws):
+        p, _ = _p(nfft, ws, 0, n_frames=3)
+        rng = np.random.default_rng(nfft)
+        q = torch.as_tensor(_pcm(rng, (7, ws)), device=cuda)
+        sc = torch.linspace(1e-4, 3e-4, 7, device=cuda)
+        x = q.float() * sc[:, None]
+        got = ct_rfft.ct_frame_psd(x, p)
+        assert _maxrel(got.cpu(), ct_rfft.ct_frame_psd_plain(x, p).cpu(),
+                       1e-6) < 1e-3
+        assert torch.equal(got, ct_rfft.ct_frame_psd(q, p, scales=sc))
+        assert torch.equal(got, ct_rfft.ct_frame_psd(x, p, n1=16))
 
     def test_frame_psd(self, cuda):
         p, _ = _p(256, 256, 128, n_frames=300)
