@@ -7,9 +7,10 @@ Run from the root of a checkout on a machine with one CUDA GPU:
 
 It builds the six hand-written CUDA kernels from ``src/repro_torch/
 kernels/csrc`` (nvcc, at first use), holds each against its plain
-PyTorch version at the shapes the paper's paths give it -- and K1 and K2
-at every shape the CPU tests give them too -- and drives two paths over
-one 45-minute paper file for both paper parameter sets:
+PyTorch version at the shapes the paper's paths give it -- and K1, K2
+and K5 at every shape the CPU tests give them too, and K4 at a ragged
+block of records -- and drives two paths over one 45-minute paper file
+for both paper parameter sets:
 
   * the main path, ``repro_torch.api.job(m, p).features("welch", "spl",
     "tol", "ltsa")``, checked for float32 == int16 payload bitwise,
@@ -62,14 +63,18 @@ EVENT_THRESHOLD_DB, EVENT_HYSTERESIS_DB = -17.0, 2.0
 BURST_SEC, BURST_AMP = 0.05, 30000.0
 OVERFLOW_RECORD, OVERFLOW_BURSTS = 7, 24      # > event_capacity (16)
 
-# K1 and K2 are also held against their plain versions at every shape the
-# CPU tests give them: (nfft, window, overlap) for K1 -- the FFT route,
-# and one non-power-of-two nfft on the direct tile -- and (nfft, window)
-# for K2.
+# K1, K2 and K5 are also held against their plain versions at every
+# shape the CPU tests give them: (nfft, window, overlap) for K1 and K5 --
+# the FFT route, and one non-power-of-two nfft on the direct tile -- and
+# (nfft, window) for K2.  K4 also runs at SWEEP_K4_RECORDS records, so
+# that its last block of records is ragged.
 SWEEP_K1 = ((128, 128, 0), (256, 256, 128), (256, 256, 192), (128, 128, 64),
             (512, 384, 288), (256, 128, 64), (320, 320, 160))
 SWEEP_K2 = ((1024, 1024), (2048, 2048), (4096, 4096), (8192, 8192),
             (1024, 768))
+SWEEP_K5 = ((256, 256, 128), (128, 128, 0), (512, 384, 288), (256, 128, 64),
+            (320, 320, 160))
+SWEEP_K4_RECORDS = 13
 
 
 def check(cond: bool, what: str) -> None:
@@ -395,25 +400,41 @@ def main() -> int:
            lambda: torch.mean(fp3, dim=1),
            n_bytes=(fp3.numel() + k3.numel()) * 4, flops=fp3.numel())
 
-    # K4 tol_levels: both sets' Welch PSDs; timed at set 2 (8, 2049)
-    for p, psd in ((p1, k1), (p2, k3)):
+    # K4 tol_levels: both sets' Welch PSDs of the step's 8 records, and
+    # of SWEEP_K4_RECORDS records (a ragged block of records); timed at
+    # set 2 (8, 2049)
+    idx4 = np.arange(SWEEP_K4_RECORDS)
+    cases4 = ((p1, k1), (p2, k3),
+              (p1, framepsd.welch_psd(torch.as_tensor(
+                  decoded(pcm1, sc1, idx4), device=dev), p1)),
+              (p2, ops.welch_psd(torch.as_tensor(
+                  decoded(pcm2, sc2, idx4), device=dev), p2)))
+    bm2 = torch.as_tensor(band_matrix(p2), device=dev)
+    for p, psd in cases4:
         bm = torch.as_tensor(band_matrix(p), device=dev)
-        k4 = tolk.tol_levels(psd, bm, p)
-        k4_plain = tolk.tol_levels_plain(psd, bm, p)
+        got4 = tolk.tol_levels(psd, bm, p)
+        want4 = tolk.tol_levels_plain(psd, bm, p)
+        again4 = tolk.tol_levels(psd, bm, p)
         torch.cuda.synchronize()
-        err = float((k4 - k4_plain).abs().max())
+        err = float((got4 - want4).abs().max())
         print(f"K4 tol_levels {tuple(psd.shape)} x {tuple(bm.shape)}: max "
-              f"abs err {err:.3e} dB (tol 1e-4)")
-        check(err < 1e-4, "K4 disagrees with its plain version")
-    nb, nbands = bm.shape
+              f"abs err {err:.3e} dB (tol 1e-4), same bits on a second "
+              f"call: {torch.equal(got4, again4)}")
+        check(err < 1e-4, f"K4 disagrees with its plain version at "
+              f"{tuple(psd.shape)}")
+        check(torch.equal(got4, again4), "K4 is not deterministic")
+    del cases4
+    k4 = tolk.tol_levels(k3, bm2, p2)
+    k4_plain = tolk.tol_levels_plain(k3, bm2, p2)
+    nb, nbands = bm2.shape
     record("tol_levels", "src/repro_torch/kernels/csrc/tol.cu",
            "src/repro/kernels/tol.py:29", k4, k4_plain,
-           lambda: tolk.tol_levels(k3, bm, p2),
-           lambda: tolk.tol_levels_plain(k3, bm, p2),
+           lambda: tolk.tol_levels(k3, bm2, p2),
+           lambda: tolk.tol_levels_plain(k3, bm2, p2),
            lambda: (10.0 * torch.log10(torch.clamp(
-               (k3 @ bm) * p2.df, min=1e-30)) + p2.gain_db),
+               (k3 @ bm2) * p2.df, min=1e-30)) + p2.gain_db),
            n_bytes=(8 * nb + nb * nbands + 8 * nbands) * 4,
-           flops=2 * 8 * int(torch.count_nonzero(bm)) + 3 * 8 * nbands)
+           flops=2 * 8 * int(torch.count_nonzero(bm2)) + 3 * 8 * nbands)
 
     def wav_step(name):
         """The first step (8 records) of a set's detection corpus, read
@@ -434,9 +455,11 @@ def main() -> int:
     k5_q = framepsd.frame_psd(q5, p1, s5)
     torch.cuda.synchronize()
     err = max_rel(k5, k5_plain, 1e-9)
-    print(f"K5 frame_psd {tuple(x5.shape)} -> {tuple(k5.shape)}: max rel "
-          f"err {err:.3e} (tol 5e-4, floor 1e-9), int16 == float32 "
-          f"bitwise: {torch.equal(k5, k5_q)}")
+    route5 = framepsd._frame_plan(p1, dev).route
+    print(f"K5 frame_psd {tuple(x5.shape)} -> {tuple(k5.shape)}: route "
+          f"{route5}, max rel err {err:.3e} (tol 5e-4, floor 1e-9), int16 "
+          f"== float32 bitwise: {torch.equal(k5, k5_q)}")
+    check(route5 == "fft", "K5 does not take the FFT route at set 1")
     check(err < 5e-4, "K5 disagrees with its plain version")
     check(torch.equal(k5, k5_q), "K5 int16 call differs from float32 call")
     record("frame_psd", "src/repro_torch/kernels/csrc/framepsd.cu",
@@ -499,7 +522,7 @@ def main() -> int:
                   f"plain={p_paced}")
     del traces
 
-    # -- phase 2b: K1 and K2 at every shape the CPU tests give them --------
+    # -- phase 2b: K1, K2 and K5 at every shape the CPU tests give them ----
     rng = np.random.default_rng(SEED)
 
     def pcm_and_scales(shape):
@@ -548,6 +571,28 @@ def main() -> int:
               f"{window}")
         check(torch.equal(got, got_q), f"K2 int16 != float32 at {nfft}")
         check(same_n1, f"K2 result depends on n1 at {nfft}")
+    for nfft, window, overlap in SWEEP_K5:
+        p = sweep_params(nfft, window, overlap, 1000)
+        q, sc, x = pcm_and_scales((3, p.record_size))
+        got, got_q = framepsd.frame_psd(x, p), framepsd.frame_psd(q, p, sc)
+        row, row_q = framepsd.frame_psd(x[1], p), framepsd.frame_psd(
+            q[1], p, sc[1])
+        err = max(max_rel(got, framepsd.frame_psd_plain(x, p), 1e-9),
+                  max_rel(row, framepsd.frame_psd_plain(x[1], p), 1e-9))
+        route = framepsd._frame_plan(p, dev).route
+        torch.cuda.synchronize()
+        same_q = torch.equal(got, got_q) and torch.equal(row, row_q)
+        same_row = torch.equal(row, got[1])
+        print(f"K5 sweep nfft={nfft} window={window} overlap={overlap} "
+              f"{tuple(x.shape)}: route {route}, max rel err {err:.3e} (tol "
+              f"5e-4, floor 1e-9, 1-D and 2-D), int16 == float32 bitwise: "
+              f"{same_q}, 1-D call == its row: {same_row}")
+        check(route == ("fft" if nfft in (128, 256, 512) else "direct"),
+              f"K5 takes the {route} route at {nfft}, {window}")
+        check(err < 5e-4, f"K5 disagrees with its plain version at {nfft}, "
+              f"{window}, {overlap}")
+        check(same_q, f"K5 int16 != float32 at {nfft}, {window}, {overlap}")
+        check(same_row, f"K5 1-D call != its row at {nfft}, {window}")
 
     # -- phase 3: the main path ---------------------------------------------
     counters = ops.launch_counters()

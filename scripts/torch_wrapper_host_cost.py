@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Host cost of the K1 and K2 launch wrappers of the PyTorch/CUDA port.
+"""Host cost of the K1, K2, K4 and K5 launch wrappers of the PyTorch/CUDA
+port.
 
 Run on a machine with a CUDA GPU, from the root of a checkout:
 
@@ -7,13 +8,16 @@ Run on a machine with a CUDA GPU, from the root of a checkout:
 
 ``--src`` names the ``src/`` directory whose ``repro_torch`` is measured
 (default: this checkout's), so that two trees can be compared in one
-run.  For ``framepsd.welch_psd`` at paper set 1 ((8, 1 966 080) f32) and
-``ct_rfft.ct_frame_psd`` at paper set 2 ((640, 4096) f32) it times, in
-host microseconds per call: the whole wrapper, the bare C entry point
-with its arguments ready, and the pieces a wrapper may spend its time
-on (hashing the parameters, an ``lru_cache`` lookup, entering and
-leaving ``torch.cuda.device``, the current stream, a ctypes pointer
-array, ``torch.empty``, the block-frames query where the tree has it).
+run.  For ``framepsd.welch_psd`` and ``framepsd.frame_psd`` at paper set
+1 ((8, 1 966 080) f32), ``ct_rfft.ct_frame_psd`` at paper set 2 ((640,
+4096) f32) and ``tol.tol_levels`` at set 2 ((8, 2049) x (2049, 33)) it
+times, in host microseconds per call: the whole wrapper, the bare C
+entry point with its arguments ready (K5's by the tree's own entry
+point: with a launch plan, or the earlier one that takes its constants
+one by one), and the pieces a wrapper may spend its time on (hashing
+the parameters, an ``lru_cache`` lookup, entering and leaving
+``torch.cuda.device``, the current stream, a ctypes pointer array,
+``torch.empty``).
 Each figure is the median over rounds of the wall time of many calls
 with no synchronize, divided by their number; the card is held busy by
 a spin first so that launches queue and never wait.  Prints the card's
@@ -48,7 +52,8 @@ def main() -> int:
         raise SystemExit("measures the wrappers on a CUDA GPU: "
                          "torch.cuda.is_available() is False")
     from repro_torch.core.params import PARAM_SET_1, PARAM_SET_2
-    from repro_torch.kernels import _build, ct_rfft, framepsd
+    from repro_torch.core.tol import band_matrix
+    from repro_torch.kernels import _build, ct_rfft, framepsd, tol
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -64,44 +69,47 @@ def main() -> int:
                          dtype=torch.float32, device=dev)
     x2 = torch.as_tensor(rng.standard_normal((640, p2.window_size)),
                          dtype=torch.float32, device=dev)
+    psd4 = torch.as_tensor(rng.random((8, p2.n_bins)), dtype=torch.float32,
+                           device=dev)
+    bm4 = torch.as_tensor(band_matrix(p2), device=dev)
     n = x1.shape[1]
     fpr1 = (n - p1.window_size) // p1.hop + 1
     stream = torch.cuda.current_stream().cuda_stream
     out1 = torch.empty((8, p1.n_bins), device=dev)
     out2 = torch.empty((640, p2.n_bins), device=dev)
+    out4 = torch.empty((8, bm4.shape[1]), device=dev)
+    out5 = torch.empty((8, fpr1, p1.n_bins), device=dev)
 
-    # The bare C calls, with their arguments ready, for either tree.
-    if hasattr(framepsd, "_welch_plan"):
-        plan1 = framepsd._welch_plan(p1, n, dev)
-        part1 = torch.empty((8, plan1.n_chunks, plan1.cols), device=dev)
-        bare1 = functools.partial(
-            plan1.f32, x1.data_ptr(), n, n, *plan1.mid, part1.data_ptr(),
-            out1.data_ptr(), 8, *plan1.tail, stream)
-        plan2 = ct_rfft._plan(p2, dev)
-        bare2 = functools.partial(
-            plan2.f32, x2.data_ptr(), p2.window_size, *plan2.mid,
-            out2.data_ptr(), 640, *plan2.tail, stream)
+    # The bare C calls, with their arguments ready.
+    plan1 = framepsd._welch_plan(p1, n, dev)
+    part1 = torch.empty((8, plan1.n_chunks, plan1.cols), device=dev)
+    bare1 = functools.partial(
+        plan1.f32, x1.data_ptr(), n, n, *plan1.mid, part1.data_ptr(),
+        out1.data_ptr(), 8, *plan1.tail, stream)
+    plan2 = ct_rfft._plan(p2, dev)
+    bare2 = functools.partial(
+        plan2.f32, x2.data_ptr(), p2.window_size, *plan2.mid,
+        out2.data_ptr(), 640, *plan2.tail, stream)
+    bare4 = functools.partial(
+        _build.function("depam_tol_levels", _build.P, _build.P, _build.P,
+                        _build.I, _build.I, _build.I, _build.F, _build.F,
+                        _build.P),
+        psd4.data_ptr(), bm4.data_ptr(), out4.data_ptr(), 8, p2.n_bins,
+        bm4.shape[1], float(p2.df), float(p2.gain_db), stream)
+    if hasattr(framepsd, "_frame_plan"):
+        plan5 = framepsd._frame_plan(p1, dev)
+        bare5 = functools.partial(
+            plan5.f32, x1.data_ptr(), n, n, *plan5.mid, out5.data_ptr(), 8,
+            fpr1, *plan5.tail, stream)
     else:
-        c, s, sc = framepsd._device_constants(p1, fpr1, str(dev))
-        blk = _build.function("depam_welch_psd_block_frames",
-                              _build.I)(p1.n_bins)
-        part1 = torch.empty((8, -(-fpr1 // blk), c.shape[1]), device=dev)
-        fn1 = _build.function("depam_welch_psd_f32", _build.P, _build.L,
-                              _build.L, *(_build.P,) * 5, *(_build.I,) * 5,
+        c, s, sc = framepsd._device_constants(p1, 1, str(dev))
+        fn5 = _build.function("depam_frame_psd_f32", _build.P, _build.L,
+                              _build.L, *(_build.P,) * 4, *(_build.I,) * 5,
                               _build.P)
-        bare1 = functools.partial(
-            fn1, x1.data_ptr(), n, n, c.data_ptr(), s.data_ptr(),
-            sc.data_ptr(), part1.data_ptr(), out1.data_ptr(), 8, fpr1,
-            p1.window_size, p1.hop, p1.n_bins, stream)
-        n1 = ct_rfft.default_n1(p2.nfft)
-        consts = ct_rfft._device_constants(p2, n1, str(dev))
-        arr = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in consts))
-        fn2 = _build.function("depam_ct_frame_psd_f32", _build.P, _build.L,
-                              ctypes.POINTER(ctypes.c_void_p), _build.P,
-                              *(_build.I,) * 5, _build.P)
-        bare2 = functools.partial(
-            fn2, x2.data_ptr(), p2.window_size, arr, out2.data_ptr(), 640,
-            p2.window_size, p2.nfft, n1, p2.n_bins, stream)
+        bare5 = functools.partial(
+            fn5, x1.data_ptr(), n, n, c.data_ptr(), s.data_ptr(),
+            sc.data_ptr(), out5.data_ptr(), 8, fpr1, p1.window_size, p1.hop,
+            p1.n_bins, stream)
 
     cached = functools.lru_cache(maxsize=16)(lambda p, k, d: None)
 
@@ -115,6 +123,10 @@ def main() -> int:
         "welch_psd bare C call": bare1,
         "ct_frame_psd wrapper": lambda: ct_rfft.ct_frame_psd(x2, p2),
         "ct_frame_psd bare C call": bare2,
+        "frame_psd wrapper": lambda: framepsd.frame_psd(x1, p1),
+        "frame_psd bare C call": bare5,
+        "tol_levels wrapper": lambda: tol.tol_levels(psd4, bm4, p2),
+        "tol_levels bare C call": bare4,
         "hash(p)": lambda: hash(p1),
         "lru_cache lookup (p, int, device)": lambda: cached(p1, n, dev),
         "torch.cuda.device(dev) enter + exit": device_context,
@@ -124,9 +136,6 @@ def main() -> int:
         "torch.empty (8, 129) on the card": lambda: torch.empty(
             (8, p1.n_bins), device=dev),
     }
-    if hasattr(_build.library().lib, "depam_welch_psd_block_frames"):
-        blk_fn = _build.function("depam_welch_psd_block_frames", _build.I)
-        pieces["depam_welch_psd_block_frames call"] = lambda: blk_fn(129)
 
     spin = 10_000_000
     result = {}

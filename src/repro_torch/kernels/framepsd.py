@@ -8,14 +8,18 @@ hop 128) the whole chain
 runs in one kernel that reads the signal once (``csrc/framepsd.cu``):
 
   * K1 ``welch_psd`` — the per-record Welch PSD; the per-frame spectra
-    never reach device memory.  A radix-8/4 FFT per frame
-    (``csrc/fft.cuh``, plan in ``fftplan.py``) for a power-of-two nfft
-    from 128 to 512, the window-folded direct DFT for any other nfft.
-    Replaces the TPU kernel ``src/repro/kernels/framepsd.py:239``.
+    never reach device memory.  Replaces the TPU kernel
+    ``src/repro/kernels/framepsd.py:239``.
   * K5 ``frame_psd`` — the per-frame PSD (the spectrogram behind
-    ``percentiles``, ``spd`` and detection), by the window-folded
-    direct DFT.  Replaces the TPU kernel
-    ``src/repro/kernels/framepsd.py:130``.
+    ``percentiles``, ``spd`` and detection), each frame's row stored
+    from the FFT buffer in one coalesced run per warp.  Replaces the TPU
+    kernel ``src/repro/kernels/framepsd.py:130``.
+
+Both take one route by shape: a radix-8/4 FFT per frame
+(``csrc/fft.cuh``, plan in ``fftplan.py``) for a power-of-two nfft from
+128 to 512 with window <= nfft, the window-folded direct DFT for any
+other nfft.  Each wrapper launches from a launch plan built once per
+configuration and device.
 
 The plain versions compute the reference's folded direct DFT.  The CUDA
 source says what bounds the kernels on the card and how the design
@@ -85,19 +89,40 @@ def welch_psd_plain(records: torch.Tensor, p,
                                                device=power.device)
 
 
-@functools.lru_cache(maxsize=16)
-def _device_constants(p, fpr: int, device: str):
-    """Folded DFT matrices zero-padded to whole warps of bins, and the
-    per-bin scale with the Welch mean's 1/fpr folded in (K5 passes
-    fpr=1), on the device (built once per configuration)."""
-    c, s = _fold_matrices(p)
-    cols = -(-p.n_bins // 32) * 32
-    pad = ((0, 0), (0, cols - p.n_bins))
-    c = np.pad(c.reshape(p.window_size, p.n_bins), pad)
-    s = np.pad(s.reshape(p.window_size, p.n_bins), pad)
+def _route_constants(p, fpr: int, fft: bool, device: torch.device):
+    """The constants K1 and K5 take, in the order of their pointer
+    array — C, S (direct route: the folded DFT matrices zero-padded to
+    whole warps of bins), bin scale (with K1's 1/fpr folded in; K5
+    passes fpr=1), window, twiddles, split factors (FFT route) — and
+    the FFT plan's (radices, passes, twiddles), zeros on the direct
+    route."""
     scale = _bin_scale(p, extra=1.0 / fpr)[0]
-    return tuple(torch.as_tensor(np.ascontiguousarray(a), device=device)
-                 for a in (c, s, scale))
+    if fft:
+        fp = fftplan.plan(p.nfft)
+        w = np_window(p.window, p.window_size).astype(np.float32)
+        arrays = (None, None, scale, w, fp.twiddles, fp.split)
+        mid = (fp.packed, len(fp.radices), len(fp.twiddles))
+    else:
+        c, s = _fold_matrices(p)
+        pad = ((0, 0), (0, -(-p.n_bins // 32) * 32 - p.n_bins))
+        arrays = (np.pad(c.reshape(p.window_size, p.n_bins), pad),
+                  np.pad(s.reshape(p.window_size, p.n_bins), pad), scale,
+                  None, None, None)
+        mid = (0, 0, 0)
+    return tuple(None if a is None else torch.as_tensor(
+        np.ascontiguousarray(a), device=device) for a in arrays), mid
+
+
+# The C entry points' arguments after the payload (and, for int16, the
+# decode scales): pointer array, radices, passes, twiddles, [partial,]
+# out, records, frames, window, hop, nfft, bins, stream.
+def _entry_points(name: str, scratch: bool):
+    tail = (_build.P, _build.U, _build.I, _build.I) \
+        + (_build.P,) * (2 if scratch else 1) + (_build.I,) * 6 + (_build.P,)
+    return (_build.function(f"{name}_f32", _build.P, _build.L, _build.L,
+                            *tail),
+            _build.function(f"{name}_i16", _build.P, _build.L, _build.L,
+                            _build.P, *tail))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,27 +151,42 @@ def _welch_plan(p, n: int, device: torch.device) -> _WelchPlan:
         err = fn(p.nfft, p.window_size, p.hop, p.n_bins, ctypes.byref(route),
                  ctypes.byref(block), ctypes.byref(cols))
     _build.check(err, "welch_psd plan")
-    if route.value:
-        fp = fftplan.plan(p.nfft)
-        w = np_window(p.window, p.window_size).astype(np.float32)
-        scale = _bin_scale(p, extra=1.0 / fpr)[0]
-        consts = (None, None) + tuple(
-            torch.as_tensor(np.ascontiguousarray(a), device=device)
-            for a in (scale, w, fp.twiddles, fp.split))
-        mid = (fp.packed, len(fp.radices), len(fp.twiddles))
-    else:
-        consts = _device_constants(p, fpr, str(device)) + (None,) * 3
-        mid = (0, 0, 0)
-    tail_types = (_build.P, _build.U, _build.I, _build.I, _build.P,
-                  _build.P) + (_build.I,) * 6 + (_build.P,)
+    consts, mid = _route_constants(p, fpr, bool(route.value), device)
+    f32, i16 = _entry_points("depam_welch_psd", scratch=True)
     return _WelchPlan(
         consts=consts, mid=(pointers(consts),) + mid,
         tail=(fpr, p.window_size, p.hop, p.nfft, p.n_bins),
-        n_chunks=-(-fpr // block.value), cols=cols.value,
-        f32=_build.function("depam_welch_psd_f32", _build.P, _build.L,
-                            _build.L, *tail_types),
-        i16=_build.function("depam_welch_psd_i16", _build.P, _build.L,
-                            _build.L, _build.P, *tail_types))
+        n_chunks=-(-fpr // block.value), cols=cols.value, f32=f32, i16=i16)
+
+
+@dataclasses.dataclass(frozen=True)
+class _FramePlan:
+    """What a K5 launch needs that depends only on the configuration
+    and the device: built once (the C side picks the route by shape and
+    raises the kernel's shared-memory limit), then each call allocates
+    its output and passes pointers."""
+    route: str                  # "fft" or "direct"
+    consts: tuple               # device tensors the pointers point into
+    mid: tuple                  # (pointer array, radices, passes, twiddles)
+    tail: tuple                 # (window, hop, nfft, n_bins)
+    f32: object
+    i16: object
+
+
+@functools.lru_cache(maxsize=16)
+def _frame_plan(p, device: torch.device) -> _FramePlan:
+    route = ctypes.c_int()
+    fn = _build.function("depam_frame_psd_plan", _build.I, _build.I,
+                         _build.I, _build.I, ctypes.POINTER(ctypes.c_int))
+    with torch.cuda.device(device):
+        err = fn(p.nfft, p.window_size, p.hop, p.n_bins, ctypes.byref(route))
+    _build.check(err, "frame_psd plan")
+    consts, mid = _route_constants(p, 1, bool(route.value), device)
+    f32, i16 = _entry_points("depam_frame_psd", scratch=False)
+    return _FramePlan(
+        route="fft" if route.value else "direct", consts=consts,
+        mid=(pointers(consts),) + mid,
+        tail=(p.window_size, p.hop, p.nfft, p.n_bins), f32=f32, i16=i16)
 
 
 def welch_psd(records: torch.Tensor, p,
@@ -207,10 +247,10 @@ def frame_psd(x: torch.Tensor, p,
         raise ValueError(f"x must be 1-D or 2-D, got {tuple(x.shape)}")
     check_cuda(x, "x", (torch.float32, torch.int16), x.dim())
     if p.window_size % p.hop:
-        raise ValueError("the direct frame-PSD kernel requires "
+        raise ValueError("the fused frame-PSD kernel requires "
                          "hop | window_size")
     if p.n_bins > 9 * 32:
-        raise ValueError(f"the direct frame-PSD kernel takes at most 288 "
+        raise ValueError(f"the fused frame-PSD kernel takes at most 288 "
                          f"bins (nfft <= 574), got {p.n_bins}")
     records = x if x.dim() == 2 else x[None]
     if records.stride(1) != 1:
@@ -221,27 +261,20 @@ def frame_psd(x: torch.Tensor, p,
         raise ValueError(f"records of {n} samples hold no frame of "
                          f"{p.window_size}")
     dev = records.device
-    c, s, scale = _device_constants(p, 1, str(dev))
+    plan = _frame_plan(p, dev)
     out = torch.empty((n_rec, fpr, p.n_bins), dtype=torch.float32,
                       device=dev)
-    tail = (c.data_ptr(), s.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            n_rec, fpr, p.window_size, p.hop, p.n_bins)
-    tail_types = (_build.P,) * 4 + (_build.I,) * 5 + (_build.P,)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if records.dtype == torch.int16:
-            if scales is not None:
-                scales = torch.as_tensor(scales, dtype=torch.float32,
-                                         device=dev).reshape(-1)
-            sq = decode_scales(scales, n_rec, dev)
-            fn = _build.function("depam_frame_psd_i16", _build.P, _build.L,
-                                 _build.L, _build.P, *tail_types)
-            err = fn(records.data_ptr(), records.stride(0), n,
-                     sq.data_ptr(), *tail, stream)
-        else:
-            fn = _build.function("depam_frame_psd_f32", _build.P, _build.L,
-                                 _build.L, *tail_types)
-            err = fn(records.data_ptr(), records.stride(0), n, *tail, stream)
+    if records.dtype == torch.int16:
+        if scales is not None:
+            scales = torch.as_tensor(scales, dtype=torch.float32,
+                                     device=dev).reshape(-1)
+        sq = decode_scales(scales, n_rec, dev)
+        err = launch(dev, plan.i16, records.data_ptr(), records.stride(0), n,
+                     sq.data_ptr(), *plan.mid, out.data_ptr(), n_rec, fpr,
+                     *plan.tail)
+    else:
+        err = launch(dev, plan.f32, records.data_ptr(), records.stride(0), n,
+                     *plan.mid, out.data_ptr(), n_rec, fpr, *plan.tail)
     _build.check(err, "frame_psd")
     LAUNCHES_FRAME.hit()
     return out if x.dim() == 2 else out[0]

@@ -2,16 +2,22 @@
 
 TOL = 10*log10(max((psd @ M) * df, 1e-30)) + gain, with M the
 fractional band-membership matrix from ``core.tol``.  Replaces the TPU
-kernel ``src/repro/kernels/tol.py:29``; the CUDA source
-(``csrc/tol.cu``) says what bounds it on the card and how its design
-answers.
+kernel ``src/repro/kernels/tol.py:29``.  The CUDA kernel
+(``csrc/tol.cu``) spreads the product over a block per (band, group of
+8 records), each thread a strided set of bins with one accumulator per
+record, then sums each record's partials by a fixed tree; the source
+says what bounds it on the card and what held the earlier design back.
+The wrapper launches from a launch plan built once per configuration.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 from . import _build
-from .common import LaunchCounter, check_cuda
+from .common import LaunchCounter, check_cuda, launch
 
 LAUNCHES = LaunchCounter("tol_levels")
 
@@ -21,6 +27,24 @@ def tol_levels_plain(psd: torch.Tensor, band_matrix: torch.Tensor,
     """The plain PyTorch version: one f32 product, scale, log."""
     power = (psd.to(torch.float32) @ band_matrix.to(torch.float32)) * p.df
     return 10.0 * torch.log10(torch.clamp(power, min=1e-30)) + p.gain_db
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """What a K4 launch needs that depends only on the configuration:
+    the entry point and its trailing scalars.  Nothing in it depends on
+    the device: K4 has no constants, one route, and no shared-memory
+    limit to raise."""
+    fn: object
+    tail: tuple                 # (df, gain_db)
+
+
+@functools.lru_cache(maxsize=16)
+def _plan(p) -> _Plan:
+    fn = _build.function("depam_tol_levels", _build.P, _build.P, _build.P,
+                         _build.I, _build.I, _build.I, _build.F, _build.F,
+                         _build.P)
+    return _Plan(fn=fn, tail=(float(p.df), float(p.gain_db)))
 
 
 def tol_levels(psd: torch.Tensor, band_matrix: torch.Tensor,
@@ -37,15 +61,11 @@ def tol_levels(psd: torch.Tensor, band_matrix: torch.Tensor,
     psd = psd.contiguous()
     band_matrix = band_matrix.contiguous()
     n_bands = band_matrix.shape[1]
-    out = torch.empty((n_rec, n_bands), dtype=torch.float32,
-                      device=psd.device)
-    fn = _build.function("depam_tol_levels", _build.P, _build.P, _build.P,
-                         _build.I, _build.I, _build.I, _build.F, _build.F,
-                         _build.P)
-    with torch.cuda.device(psd.device):
-        err = fn(psd.data_ptr(), band_matrix.data_ptr(), out.data_ptr(),
-                 n_rec, n_bins, n_bands, float(p.df), float(p.gain_db),
-                 torch.cuda.current_stream().cuda_stream)
+    dev = psd.device
+    plan = _plan(p)
+    out = torch.empty((n_rec, n_bands), dtype=torch.float32, device=dev)
+    err = launch(dev, plan.fn, psd.data_ptr(), band_matrix.data_ptr(),
+                 out.data_ptr(), n_rec, n_bins, n_bands, *plan.tail)
     _build.check(err, "tol_levels")
     LAUNCHES.hit()
     return out

@@ -372,8 +372,15 @@ class TestKernelsOnCard:
         assert torch.equal(got, ct_rfft.ct_frame_psd(q, p, scales=sc))
         assert torch.equal(got, ct_rfft.ct_frame_psd(x, p, n1=16))
 
-    def test_frame_psd(self, cuda):
-        p, _ = _p(256, 256, 128, n_frames=300)
+    @pytest.mark.parametrize("nfft,ws,ov", [
+        (256, 256, 128), (128, 128, 0), (512, 384, 288),
+        (256, 128, 64),                      # the FFT route
+        (320, 320, 160),                     # the direct tile
+    ])
+    def test_frame_psd(self, cuda, nfft, ws, ov):
+        p, _ = _p(nfft, ws, ov, n_frames=300)
+        assert framepsd._frame_plan(p, cuda).route == (
+            "direct" if nfft == 320 else "fft")
         rng = np.random.default_rng(2)
         q = torch.as_tensor(_pcm(rng, (3, p.record_size)), device=cuda)
         sc = torch.tensor([1e-4, 2e-4, 3e-4], device=cuda)
@@ -383,7 +390,11 @@ class TestKernelsOnCard:
         assert _maxrel(got.cpu(), framepsd.frame_psd_plain(x, p).cpu(),
                        1e-9) < 5e-4
         assert torch.equal(got, framepsd.frame_psd(q, p, sc))
-        assert torch.equal(got[1], framepsd.frame_psd(x[1], p))
+        row = framepsd.frame_psd(x[1], p)
+        assert _maxrel(row.cpu(), framepsd.frame_psd_plain(x[1], p).cpu(),
+                       1e-9) < 5e-4
+        assert torch.equal(got[1], row)
+        assert torch.equal(row, framepsd.frame_psd(q[1], p, sc[1]))
 
     def test_detect_events(self, cuda):
         rng = np.random.default_rng(3)
@@ -398,12 +409,18 @@ class TestKernelsOnCard:
         assert torch.equal(c, pc) and torch.equal(r, pr)
         assert bool((c > 6).any())
 
-    def test_welch_mean_and_tol(self, cuda):
-        p, _ = _p(4096, 4096, 0)
-        fp = torch.rand(3, 11, p.n_bins, device=cuda)
+    @pytest.mark.parametrize("nfft", [256, 4096])
+    @pytest.mark.parametrize("n_rec", [8, 13])
+    def test_welch_mean_and_tol(self, cuda, nfft, n_rec):
+        """K3, and K4 at both paper shapes, with a ragged block of
+        records at 13; K4 gives the same bits on every call."""
+        p, _ = _p(nfft, nfft, 0)
+        fp = torch.rand(n_rec, 11, p.n_bins, device=cuda)
         got = welch.welch_mean(fp)
         assert _maxrel(got.cpu(), welch.welch_mean_plain(fp).cpu(),
                        1e-9) < 1e-5
         bm = torch.as_tensor(band_matrix(p), device=cuda)
-        assert float((tolk.tol_levels(got, bm, p)
-                      - tolk.tol_levels_plain(got, bm, p)).abs().max()) < 1e-4
+        levels = tolk.tol_levels(got, bm, p)
+        assert float((levels - tolk.tol_levels_plain(got, bm, p))
+                     .abs().max()) < 1e-4
+        assert torch.equal(levels, tolk.tol_levels(got, bm, p))
