@@ -8,9 +8,11 @@ Run from the root of a checkout on a machine with one CUDA GPU:
 It builds the six hand-written CUDA kernels from ``src/repro_torch/
 kernels/csrc`` (nvcc, at first use), holds each against its plain
 PyTorch version at the shapes the paper's paths give it -- and K1, K2
-and K5 at every shape the CPU tests give them too, and K4 at a ragged
-block of records -- and drives two paths over one 45-minute paper file
-for both paper parameter sets:
+and K5 at every shape the CPU tests give them too, K4 at a ragged
+block of records, K3 at every shape of SWEEP_K3 and K6 bitwise on
+adversarial traces (``k6_traces``) at every case of ``sweep_k6`` --
+and drives two paths over one 45-minute paper file for both paper
+parameter sets:
 
   * the main path, ``repro_torch.api.job(m, p).features("welch", "spl",
     "tol", "ltsa")``, checked for float32 == int16 payload bitwise,
@@ -32,7 +34,9 @@ JSON line (per kernel: error, kernel / plain / library times and the
 least time the card could take, launches on the paths run), and last
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
 reference package, and has no CPU mode: without a CUDA device it exits
-non-zero.
+non-zero.  Its module-level helpers (the corpus, the detection job, the
+timing, the K3 and K6 sweeps and traces) are shared with the scripts in
+``scripts/`` and with ``tests/test_torch_*.py``.
 """
 from __future__ import annotations
 
@@ -75,6 +79,16 @@ SWEEP_K2 = ((1024, 1024), (2048, 2048), (4096, 4096), (8192, 8192),
 SWEEP_K5 = ((256, 256, 128), (128, 128, 0), (512, 384, 288), (256, 128, 64),
             (320, 320, 160))
 SWEEP_K4_RECORDS = 13
+# K3 runs at every (records, frames, bins) of SWEEP_K3, within 1e-5
+# relative of its plain version and with the same bits on a second call.
+SWEEP_K3 = {"records": (1, 8, 13), "frames": (1, 11, 80, 1000),
+            "bins": (129, 2049, 4097)}
+# K6 is held bitwise against its plain version (run on CPU copies) on
+# k6_traces at SWEEP_K6_RECORDS x these frame counts plus one tile and
+# one chunk of the kernel's layout +- 1 frame (sweep_k6): short traces,
+# and one trace that crosses several chunks.
+SWEEP_K6_RECORDS = (1, 8, 13)
+SWEEP_K6_FRAMES = (1, 31, 32, 33, 70001)
 
 
 def check(cond: bool, what: str) -> None:
@@ -143,6 +157,194 @@ def with_bursts(p, pcm):
     return np.clip(np.rint(out), -32768, 32767)
 
 
+def span_ms(fn):
+    """Device ms between two CUDA events around ``fn()``."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def spin_rate(spin_cycles=10_000_000):
+    """The card's spin rate in cycles per ms, after a first call: that
+    one loads the spin kernel's module between the two events and would
+    make the spin look slow, the holds of ``queued_ms`` too short and
+    its timings host-paced."""
+    import torch
+
+    torch.cuda._sleep(spin_cycles)
+    torch.cuda.synchronize()
+    return spin_cycles / statistics.median(
+        span_ms(lambda: torch.cuda._sleep(spin_cycles)) for _ in range(3))
+
+
+def queued_ms(fn, cycles_per_ms):
+    """(device ms, host ms) per call, medians over ROUNDS, and whether
+    any round was host-paced.
+
+    Host: wall time of REPS calls with no synchronize, over REPS — what
+    one call costs the host to enqueue.  Device: a spin on the card holds
+    the stream while the host enqueues REPS calls between two events, so
+    the calls run back to back and the span over REPS is device time,
+    not launch cost.  A round is host-paced when the spin has already
+    ended once the last call is enqueued (a call that synchronizes
+    itself, such as a pageable host-to-device copy, always is): its span
+    is then the host's pace."""
+    import torch
+
+    for _ in range(WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    dev, host, paced = [], [], []
+    for _ in range(ROUNDS):
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            fn()
+        host.append((time.perf_counter() - t0) / REPS * 1e3)
+        torch.cuda.synchronize()
+        hold_ms = max(4.0 * REPS * host[-1], 1.0)
+        torch.cuda._sleep(int(hold_ms * cycles_per_ms))
+        spin_end = torch.cuda.Event()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        spin_end.record()
+        a.record()
+        for _ in range(REPS):
+            fn()
+        paced.append(spin_end.query())
+        b.record()
+        b.synchronize()
+        dev.append(a.elapsed_time(b) / REPS)
+    return statistics.median(dev), statistics.median(host), any(paced)
+
+
+def spl_trace(fp, p):
+    """The (SPL dB, peak bin) trace the detection path gives K6, from a
+    (records, frames, bins) frame PSD."""
+    import torch
+    from repro_torch.core import spectra
+
+    return (spectra.db(torch.sum(fp, dim=-1) * p.df, p),
+            torch.argmax(fp, dim=-1).to(torch.int32))
+
+
+def paper_file(p):
+    """One 45-min paper file of parameter set ``p``: its manifest, the
+    seeded int16 PCM and the per-record decode scales."""
+    from repro_torch.core.manifest import DatasetManifest
+
+    n_rec = int(round(FILE_SEC / p.record_size_sec))
+    pcm, scales = corpus(p, n_rec)
+    m = DatasetManifest(n_files=1, records_per_file=n_rec,
+                        record_size=p.record_size, fs=p.fs, seed=SEED)
+    return m, pcm, scales
+
+
+def write_detection_wav(root, p, m, pcm):
+    """The detection corpus of one set, ``with_bursts``, written as the
+    manifest's wav file under ``root`` by the port's ``write_dataset``."""
+    import numpy as np
+    from repro_torch.data.wavio import write_dataset
+
+    loud = with_bursts(p, pcm).reshape(-1)
+    # + a quarter count away from zero: write_dataset truncates
+    # x * 32767 toward zero, so the file holds exactly `loud`
+    write_dataset(root, m,
+                  gen=lambda fi, n: (loud + 0.25 * np.sign(loud)) / 32767.0)
+
+
+def detection_job(api, name, p, m, root, payload):
+    """The detection path over a set's wav corpus: percentiles and spd
+    in 15-minute windows, events at EVENT_THRESHOLD_DB with impulsive
+    metrics, on the card."""
+    win = 15 if name == "set1" else 90
+    return (api.job(m, p).source(api.WavSource(root))
+            .features("percentiles", "spd")
+            .events(EVENT_THRESHOLD_DB, hysteresis_db=EVENT_HYSTERESIS_DB,
+                    impulsive=True)
+            .window(records=win).payload(payload).device("cuda"))
+
+
+def sweep_k6(tile, chunk):
+    """K6's sweep cases, (records, frames, min_len, capacity): min_len 1
+    and 3 by turns over the frame counts, capacity 16 and 3 by turns
+    over the cases, so that both meet short and long traces."""
+    frames = sorted(set(SWEEP_K6_FRAMES) | {tile - 1, tile, tile + 1,
+                                            chunk - 1, chunk, chunk + 1})
+    return [(n_rec, n, 1 + 2 * (i % 2), 3 if (i + j) % 2 else 16)
+            for i, n in enumerate(frames)
+            for j, n_rec in enumerate(SWEEP_K6_RECORDS)]
+
+
+def k6_traces(seed, n_rec, n_frames, tile, chunk,
+              thr=EVENT_THRESHOLD_DB, hyst=EVENT_HYSTERESIS_DB):
+    """Adversarial (spl, peak_bin) traces for K6, numpy float32 / int32
+    of shape (n_rec, n_frames), made from ``seed``.
+
+    The background lies below the close level lo = f32(thr) - f32(hyst).
+    Record i % 4 == 2 holds one event open from frame 0 to the record
+    end (no frame below lo).  The others hold events placed at the
+    ``tile`` and ``chunk`` edges of the kernel's layout: ending on the
+    frame before an edge (so that they close exactly on a tile's first
+    frame), straddling one, or opening on one; record i % 4 == 1 holds
+    events of 1-3 frames, more than a capacity keeps.  Event frames
+    range over [lo, thr + 6], dips inside the hysteresis band included,
+    with a peak tie between the event's second and last frames (in
+    different tiles when the event straddles an edge).  On top, at
+    random frames of a trace of 8 frames or more (at least one each):
+    NaN, +inf, exactly thr, exactly lo, and -inf and the float just
+    below lo (closers; not in the open-to-the-end record)."""
+    import numpy as np
+
+    f32 = np.float32
+    lo = f32(thr) - f32(hyst)
+    below = np.nextafter(lo, f32(-np.inf))
+    rng = np.random.default_rng([SEED, 6, seed])
+    spl = (lo - rng.uniform(0.5, 6.0, (n_rec, n_frames))).astype(f32)
+    pb = rng.integers(0, 2049, (n_rec, n_frames)).astype(np.int32)
+    if n_frames == 0:
+        return spl, pb
+    edges = np.unique(np.r_[np.arange(0, n_frames, tile),
+                            np.arange(0, n_frames, chunk)])
+
+    def band(n):
+        return np.maximum(rng.uniform(lo, thr + 6.0, n).astype(f32), lo)
+
+    for i in range(n_rec):
+        row = spl[i]
+        if i % 4 == 2:
+            row[:] = band(n_frames)
+            row[0] = thr
+            row[[n_frames // 3, 2 * n_frames // 3]] = f32(thr + 10.0)
+        else:
+            short = i % 4 == 1
+            for e in edges[rng.random(len(edges)) < (0.5 if short else 0.3)]:
+                length = int(rng.integers(1, 4 if short else 2 * tile + 1))
+                mode = rng.integers(3)
+                start = (e - length if mode == 0 else
+                         e - int(rng.integers(1, length + 1)) if mode == 1
+                         else e)
+                start = max(int(start), 0)
+                stop = min(start + length, n_frames)
+                row[start:stop] = band(stop - start)
+                row[start] = thr if rng.random() < 0.5 else f32(thr + 3.0)
+                if stop - start >= 3:
+                    row[[start + 1, stop - 1]] = f32(thr + 7.0)
+        for value, share in ((np.nan, 0.01), (np.inf, 0.002), (thr, 0.01),
+                             (lo, 0.01)) + (
+                ((-np.inf, 0.002), (below, 0.005)) if i % 4 != 2 else ()):
+            k = max(1, int(share * n_frames)) if n_frames >= 8 else 0
+            row[rng.integers(0, n_frames, k)] = value
+        if i % 4 == 2:
+            row[0] = thr
+    return spl, pb
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit("chip_smoke.py runs from a checkout of the "
@@ -160,12 +362,11 @@ def main() -> int:
 
     from repro_torch import api
     from repro_torch.core import spectra
-    from repro_torch.core.manifest import DatasetManifest
     from repro_torch.core.params import (PARAM_SET_1, PARAM_SET_2,
                                          PCM_DECODE_SCALE, DepamParams)
     from repro_torch.core.tol import band_matrix
     from repro_torch.core.windows import make_window
-    from repro_torch.data.wavio import BlockReader, write_dataset
+    from repro_torch.data.wavio import BlockReader
     from repro_torch.kernels import (_build, ct_rfft, events, framepsd, ops,
                                      tol as tolk, welch as welchk)
 
@@ -190,14 +391,11 @@ def main() -> int:
     # -- data: one 45-min file per set, int16 PCM + per-record scales --
     sets = {}
     for name, p in (("set1", PARAM_SET_1), ("set2", PARAM_SET_2)):
-        n_rec = int(round(FILE_SEC / p.record_size_sec))
         t0 = time.perf_counter()
-        pcm, scales = corpus(p, n_rec)
-        m = DatasetManifest(n_files=1, records_per_file=n_rec,
-                            record_size=p.record_size, fs=p.fs, seed=SEED)
+        m, pcm, scales = paper_file(p)
         sets[name] = (p, m, pcm, scales)
-        print(f"{name}: {n_rec} records x {p.record_size} samples made in "
-              f"{time.perf_counter() - t0:.2f} s")
+        print(f"{name}: {m.n_records} records x {p.record_size} samples "
+              f"made in {time.perf_counter() - t0:.2f} s")
 
     # the detection corpus: the same PCM plus bursts, one wav file per set
     (ROOT / "build").mkdir(exist_ok=True)
@@ -205,78 +403,22 @@ def main() -> int:
     wavs = {}
     for name, (p, m, pcm, _scales) in sets.items():
         t0 = time.perf_counter()
-        loud = with_bursts(p, pcm).reshape(-1)
-        # + a quarter count away from zero: write_dataset truncates
-        # x * 32767 toward zero, so the file holds exactly `loud`
-        gen = lambda fi, n, v=loud: (v + 0.25 * np.sign(v)) / 32767.0
         root = str(Path(wav_tmp.name) / name)
-        write_dataset(root, m, gen=gen)
+        write_detection_wav(root, p, m, pcm)
         wavs[name] = root
         print(f"{name}: wav with bursts written in "
               f"{time.perf_counter() - t0:.2f} s "
               f"({Path(root, m.file_name(0)).stat().st_size / 1e6:.1f} MB)")
-        del loud
 
     def decoded(pcm, scales, idx):
         return pcm[idx].astype(np.float32) * scales[idx][:, None]
 
     # -- phase 2: each kernel against its plain version ---------------------
-    def span_ms(fn):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b)
-
-    # The spin's rate, after a first call: that one loads the spin
-    # kernel's module between the two events and would make the spin
-    # look slow, the holds below too short and the queued timings
-    # host-paced.
-    spin_cycles = 10_000_000
-    torch.cuda._sleep(spin_cycles)
-    torch.cuda.synchronize()
-    cycles_per_ms = spin_cycles / statistics.median(
-        span_ms(lambda: torch.cuda._sleep(spin_cycles)) for _ in range(3))
+    cycles_per_ms = spin_rate()
     print(f"spin: {cycles_per_ms:.0f} cycles per ms")
 
     def time_ms(fn):
-        """(device ms, host ms) per call, medians over ROUNDS, and
-        whether any round was host-paced.
-
-        Host: wall time of REPS calls with no synchronize, over REPS —
-        what one call costs the host to enqueue.  Device: a spin on the
-        card holds the stream while the host enqueues REPS calls between
-        two events, so the calls run back to back and the span over REPS
-        is device time, not launch cost.  A round is host-paced when the
-        spin has already ended once the last call is enqueued (a call
-        that synchronizes itself, such as a pageable host-to-device
-        copy, always is): its span is then the host's pace."""
-        for _ in range(WARMUP):
-            fn()
-        torch.cuda.synchronize()
-        dev, host, paced = [], [], []
-        for _ in range(ROUNDS):
-            t0 = time.perf_counter()
-            for _ in range(REPS):
-                fn()
-            host.append((time.perf_counter() - t0) / REPS * 1e3)
-            torch.cuda.synchronize()
-            hold_ms = max(4.0 * REPS * host[-1], 1.0)
-            torch.cuda._sleep(int(hold_ms * cycles_per_ms))
-            spin_end = torch.cuda.Event()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            spin_end.record()
-            a.record()
-            for _ in range(REPS):
-                fn()
-            paced.append(spin_end.query())
-            b.record()
-            b.synchronize()
-            dev.append(a.elapsed_time(b) / REPS)
-        return statistics.median(dev), statistics.median(host), any(paced)
+        return queued_ms(fn, cycles_per_ms)
 
     def max_rel(a, b, floor):
         a, b = a.double(), b.double()
@@ -475,13 +617,9 @@ def main() -> int:
     # K6 detect_events: on the SPL and peak-bin trace of each set's
     # detection step, from K5's output at set 1 and K2's at set 2, as
     # the detection path builds it; recorded at set 1
-    def trace(fp, p):
-        return (spectra.db(torch.sum(fp, dim=-1) * p.df, p),
-                torch.argmax(fp, dim=-1).to(torch.int32))
-
     q6, s6 = wav_step("set2")
-    traces = {"set1": trace(k5, p1),
-              "set2": trace(ops.frame_psd(q6, p2, scales=s6), p2)}
+    traces = {"set1": spl_trace(k5, p1),
+              "set2": spl_trace(ops.frame_psd(q6, p2, scales=s6), p2)}
     del x5, q5, k5, k5_plain, k5_q, q6, s6
     for name, (spl6, pb6) in traces.items():
         p = sets[name][0]
@@ -593,6 +731,51 @@ def main() -> int:
               f"{window}, {overlap}")
         check(same_q, f"K5 int16 != float32 at {nfft}, {window}, {overlap}")
         check(same_row, f"K5 1-D call != its row at {nfft}, {window}")
+
+    # K3 at every shape of SWEEP_K3: 1e-5 relative, the same bits twice
+    for n_rec in SWEEP_K3["records"]:
+        for n_frames in SWEEP_K3["frames"]:
+            for n_bins in SWEEP_K3["bins"]:
+                fp = torch.rand(n_rec, n_frames, n_bins, device=dev)
+                got, again = welchk.welch_mean(fp), welchk.welch_mean(fp)
+                err = max_rel(got, welchk.welch_mean_plain(fp), 1e-9)
+                check(err < 1e-5, f"K3 disagrees with its plain version at "
+                      f"{tuple(fp.shape)}: {err:.3e}")
+                check(torch.equal(got, again),
+                      f"K3 is not deterministic at {tuple(fp.shape)}")
+    del fp, got, again    # out of the paths' peak device memory
+    n3 = math.prod(len(v) for v in SWEEP_K3.values())
+    print(f"K3 sweep: {n3} shapes (records "
+          f"{SWEEP_K3['records']} x frames {SWEEP_K3['frames']} x bins "
+          f"{SWEEP_K3['bins']}) within 1e-5 relative, the same bits on a "
+          f"second call")
+
+    # K6 on adversarial traces at every case of sweep_k6, bitwise against
+    # its plain version on CPU copies
+    tile, chunk = events.TILE_FRAMES, events.CHUNK_FRAMES
+    cases6 = sweep_k6(tile, chunk)
+    overflowed = 0
+    t0 = time.perf_counter()
+    for i, (n_rec, n_frames, min_len, cap) in enumerate(cases6):
+        spl, pb = k6_traces(i, n_rec, n_frames, tile, chunk)
+        kw = dict(threshold_db=EVENT_THRESHOLD_DB,
+                  hysteresis_db=EVENT_HYSTERESIS_DB, min_len=min_len,
+                  capacity=cap)
+        got = events.detect_events(torch.as_tensor(spl, device=dev),
+                                   torch.as_tensor(pb, device=dev), **kw)
+        want = events.detect_events_plain(torch.as_tensor(spl),
+                                          torch.as_tensor(pb), **kw)
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+              f"K6 disagrees with its plain version on the sweep trace "
+              f"({n_rec}, {n_frames}), min_len {min_len}, capacity {cap}")
+        overflowed += int((want[0] > cap).sum())
+    del got
+    check(overflowed > 0, "the K6 sweep overflowed no capacity")
+    print(f"K6 sweep: {len(cases6)} cases (records {SWEEP_K6_RECORDS} x "
+          f"frames {sorted({c[1] for c in cases6})}; tile {tile}, chunk "
+          f"{chunk}; min_len 1/3, capacity 16/3) == plain version bitwise, "
+          f"{overflowed} records over capacity, in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: the main path ---------------------------------------------
     counters = ops.launch_counters()
@@ -736,13 +919,7 @@ def main() -> int:
 
     def detect(name, payload, store=None, limit=None):
         p, m = sets[name][:2]
-        win = 15 if name == "set1" else 90     # 15-minute SPD panels
-        j = (api.job(m, p).source(api.WavSource(wavs[name]))
-             .features("percentiles", "spd")
-             .events(EVENT_THRESHOLD_DB, hysteresis_db=EVENT_HYSTERESIS_DB,
-                     impulsive=True)
-             .window(records=win).payload(payload).device("cuda")
-             .limit(limit))
+        j = detection_job(api, name, p, m, wavs[name], payload).limit(limit)
         return j.to(store) if store is not None else j
 
     def logs_equal(ra, rb):

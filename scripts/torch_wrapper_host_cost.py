@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Host cost of the K1, K2, K4 and K5 launch wrappers of the PyTorch/CUDA
+"""Host cost of the six launch wrappers (K1-K6) of the PyTorch/CUDA
 port.
 
 Run on a machine with a CUDA GPU, from the root of a checkout:
@@ -10,11 +10,13 @@ Run on a machine with a CUDA GPU, from the root of a checkout:
 (default: this checkout's), so that two trees can be compared in one
 run.  For ``framepsd.welch_psd`` and ``framepsd.frame_psd`` at paper set
 1 ((8, 1 966 080) f32), ``ct_rfft.ct_frame_psd`` at paper set 2 ((640,
-4096) f32) and ``tol.tol_levels`` at set 2 ((8, 2049) x (2049, 33)) it
-times, in host microseconds per call: the whole wrapper, the bare C
-entry point with its arguments ready (K5's by the tree's own entry
-point: with a launch plan, or the earlier one that takes its constants
-one by one), and the pieces a wrapper may spend its time on (hashing
+4096) f32), ``welch.welch_mean`` at set 2 ((8, 80, 2049) f32),
+``tol.tol_levels`` at set 2 ((8, 2049) x (2049, 33)) and
+``events.detect_events`` at set 1 ((8, 15 359) f32 + int32) it times,
+in host microseconds per call: the whole wrapper, the bare C entry point
+with its arguments ready (K5's by the tree's own entry point: with a
+launch plan, or the earlier one that takes its constants one by one),
+and the pieces a wrapper may spend its time on (hashing
 the parameters, an ``lru_cache`` lookup, entering and leaving
 ``torch.cuda.device``, the current stream, a ctypes pointer array,
 ``torch.empty``).
@@ -53,7 +55,8 @@ def main() -> int:
                          "torch.cuda.is_available() is False")
     from repro_torch.core.params import PARAM_SET_1, PARAM_SET_2
     from repro_torch.core.tol import band_matrix
-    from repro_torch.kernels import _build, ct_rfft, framepsd, tol
+    from repro_torch.kernels import (_build, ct_rfft, events, framepsd, tol,
+                                     welch)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -72,13 +75,24 @@ def main() -> int:
     psd4 = torch.as_tensor(rng.random((8, p2.n_bins)), dtype=torch.float32,
                            device=dev)
     bm4 = torch.as_tensor(band_matrix(p2), device=dev)
+    x3 = torch.as_tensor(rng.random((8, p2.frames_per_record, p2.n_bins)),
+                         dtype=torch.float32, device=dev)
     n = x1.shape[1]
     fpr1 = (n - p1.window_size) // p1.hop + 1
+    spl6 = torch.as_tensor(rng.standard_normal((8, fpr1)) * 3.0 - 20.0,
+                           dtype=torch.float32, device=dev)
+    pb6 = torch.as_tensor(rng.integers(0, p1.n_bins, (8, fpr1)),
+                          dtype=torch.int32, device=dev)
+    ev6 = dict(threshold_db=-17.0, hysteresis_db=2.0, min_len=1,
+               capacity=16)
     stream = torch.cuda.current_stream().cuda_stream
     out1 = torch.empty((8, p1.n_bins), device=dev)
     out2 = torch.empty((640, p2.n_bins), device=dev)
     out4 = torch.empty((8, bm4.shape[1]), device=dev)
     out5 = torch.empty((8, fpr1, p1.n_bins), device=dev)
+    out3 = torch.empty((8, p2.n_bins), device=dev)
+    counts6 = torch.empty((8,), dtype=torch.int32, device=dev)
+    rows6 = torch.empty((8, 16, 4), device=dev)
 
     # The bare C calls, with their arguments ready.
     plan1 = framepsd._welch_plan(p1, n, dev)
@@ -111,6 +125,20 @@ def main() -> int:
             sc.data_ptr(), out5.data_ptr(), 8, fpr1, p1.window_size, p1.hop,
             p1.n_bins, stream)
 
+    bare3 = functools.partial(
+        _build.function("depam_welch_mean", _build.P, _build.P, _build.I,
+                        _build.I, _build.I, _build.F, _build.P),
+        x3.data_ptr(), out3.data_ptr(), 8, p2.frames_per_record, p2.n_bins,
+        welch._inv_n(p2.frames_per_record), stream)
+    if hasattr(events, "_plan"):     # the plan raises K6's smem limit
+        events._plan(dev, **ev6)
+    bare6 = functools.partial(
+        _build.function("depam_detect_events", _build.P, _build.P,
+                        _build.P, _build.P, _build.I, _build.I, _build.F,
+                        _build.F, _build.I, _build.I, _build.P),
+        spl6.data_ptr(), pb6.data_ptr(), counts6.data_ptr(),
+        rows6.data_ptr(), 8, fpr1, -17.0, 2.0, 1, 16, stream)
+
     cached = functools.lru_cache(maxsize=16)(lambda p, k, d: None)
 
     def device_context():
@@ -125,8 +153,13 @@ def main() -> int:
         "ct_frame_psd bare C call": bare2,
         "frame_psd wrapper": lambda: framepsd.frame_psd(x1, p1),
         "frame_psd bare C call": bare5,
+        "welch_mean wrapper": lambda: welch.welch_mean(x3),
+        "welch_mean bare C call": bare3,
         "tol_levels wrapper": lambda: tol.tol_levels(psd4, bm4, p2),
         "tol_levels bare C call": bare4,
+        "detect_events wrapper": lambda: events.detect_events(spl6, pb6,
+                                                              **ev6),
+        "detect_events bare C call": bare6,
         "hash(p)": lambda: hash(p1),
         "lru_cache lookup (p, int, device)": lambda: cached(p1, n, dev),
         "torch.cuda.device(dev) enter + exit": device_context,

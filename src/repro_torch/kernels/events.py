@@ -19,21 +19,36 @@ frame SPL in the event (the first frame wins ties) and ``peak_bin`` that
 frame's argmax PSD bin.  Comparisons, selects and integer adds only, no
 rounding, so the CUDA kernel, the plain version here and the reference
 agree bit for bit.  Replaces the TPU kernel
-``src/repro/kernels/events.py:137`` (``detect_events``); the CUDA source
-(``csrc/events.cu``) says what bounds it on the card and how its design
-answers.
+``src/repro/kernels/events.py:137`` (``detect_events``).  The CUDA
+kernel (``csrc/events.cu``) runs a block per record over chunks of the
+trace, each thread a tile of frames: tile summaries of the trigger for
+either entry state, a block scan of them, then each tile's events
+emitted from its true entry state; the source says what bounds it on
+the card and how the design answers.  The wrapper launches from a
+launch plan built once per configuration and device.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from . import _build
-from .common import LaunchCounter, check_cuda
+from .common import LaunchCounter, check_cuda, launch
 
 N_EVENT_COLS = 4          # onset_frame, n_frames, peak_bin, peak_db
 
 LAUNCHES = LaunchCounter("detect_events")
+
+# The CUDA kernel's layout (csrc/events.cu kTile, kMaxThreads x kTile):
+# the frames a thread owns in a chunk, and the most frames a block
+# stages at once.  The plan checks them against the built kernel; the
+# kernel checks on the card place trace edges by them.
+TILE_FRAMES = 15
+CHUNK_FRAMES = 512 * TILE_FRAMES
 
 
 def detect_events_plain(spl: torch.Tensor, peak_bin: torch.Tensor, *,
@@ -85,6 +100,38 @@ def detect_events_plain(spl: torch.Tensor, peak_bin: torch.Tensor, *,
                 pk_db)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """What a K6 launch needs that depends only on the configuration and
+    the device: the entry point, once the kernel's shared-memory limit
+    is raised on the device, and its trailing scalars."""
+    fn: object
+    tail: tuple         # (threshold, hysteresis, min_len, capacity)
+
+
+@functools.lru_cache(maxsize=16)
+def _plan(device: torch.device, threshold_db: float, hysteresis_db: float,
+          min_len: int, capacity: int) -> _Plan:
+    tile, chunk = ctypes.c_int(), ctypes.c_int()
+    ip = ctypes.POINTER(ctypes.c_int)
+    setup = _build.function("depam_detect_events_plan", ip, ip)
+    with torch.cuda.device(device):
+        err = setup(ctypes.byref(tile), ctypes.byref(chunk))
+    _build.check(err, "detect_events plan")
+    if (tile.value, chunk.value) != (TILE_FRAMES, CHUNK_FRAMES):
+        raise RuntimeError(f"csrc/events.cu tiles {tile.value} frames in "
+                           f"chunks of {chunk.value}; events.py says "
+                           f"{TILE_FRAMES} and {CHUNK_FRAMES}")
+    fn = _build.function("depam_detect_events", _build.P, _build.P,
+                         _build.P, _build.P, _build.I, _build.I, _build.F,
+                         _build.F, _build.I, _build.I, _build.P)
+    # both knobs cross as float32, and the kernel rounds
+    # f32(threshold) - f32(hysteresis) once, as the reference does
+    return _Plan(fn=fn, tail=(float(np.float32(threshold_db)),
+                              float(np.float32(hysteresis_db)),
+                              int(min_len), int(capacity)))
+
+
 def detect_events(spl: torch.Tensor, peak_bin: torch.Tensor, *,
                   threshold_db: float, hysteresis_db: float,
                   min_len: int = 1, capacity: int = 16
@@ -107,20 +154,13 @@ def detect_events(spl: torch.Tensor, peak_bin: torch.Tensor, *,
     peak_bin = peak_bin.contiguous()
     n_rec, n_frames = spl.shape
     dev = spl.device
+    plan = _plan(dev, threshold_db, hysteresis_db, min_len, capacity)
     counts = torch.empty((n_rec,), dtype=torch.int32, device=dev)
     rows = torch.empty((n_rec, capacity, N_EVENT_COLS), dtype=torch.float32,
                        device=dev)
-    fn = _build.function("depam_detect_events", _build.P, _build.P,
-                         _build.P, _build.P, _build.I, _build.I, _build.F,
-                         _build.F, _build.I, _build.I, _build.P)
-    with torch.cuda.device(dev):
-        # both knobs cross as float32, and the kernel rounds
-        # f32(threshold) - f32(hysteresis) once, as the reference does
-        err = fn(spl.data_ptr(), peak_bin.data_ptr(), counts.data_ptr(),
-                 rows.data_ptr(), n_rec, n_frames,
-                 float(np.float32(threshold_db)),
-                 float(np.float32(hysteresis_db)), int(min_len),
-                 int(capacity), torch.cuda.current_stream().cuda_stream)
+    err = launch(dev, plan.fn, spl.data_ptr(), peak_bin.data_ptr(),
+                 counts.data_ptr(), rows.data_ptr(), n_rec, n_frames,
+                 *plan.tail)
     _build.check(err, "detect_events")
     LAUNCHES.hit()
     return counts, rows

@@ -4,8 +4,10 @@ against the reference, and the port's own invariants.
   * detection — the port's plain version (what the wrapper runs on a
     CPU tensor), the reference's XLA scan and its Pallas kernel
     (interpret mode), and the port's frame-by-frame oracle agree BITWISE
-    on the same (spl, peak_bin) inputs: the reference's edge cases and a
-    hypothesis sweep;
+    on the same (spl, peak_bin) inputs: the reference's edge cases, a
+    hypothesis sweep, and chip_smoke.py's adversarial K6 traces (NaN,
+    +-inf, exact threshold and close level, peak ties, events open to
+    the record end, overflow) at small frame counts;
   * the detection job — ``percentiles``/``spd``/``events``/``impulsive``
     read from wav files against the reference job, for the direct (set
     1) and the Cooley-Tukey shape, float32 and int16;
@@ -15,7 +17,9 @@ against the reference, and the port's own invariants.
     into a store without the log is refused.
 """
 import dataclasses
+import importlib.util
 import warnings
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -59,6 +63,11 @@ from repro_torch.kernels import events, ops, ref
 needs_hypothesis = pytest.mark.skipif(
     not HAVE_HYPOTHESIS,
     reason="optional dev dependency: pip install hypothesis")
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 
 P0 = DepamParams(nfft=256, window_size=256, window_overlap=128,
                  record_size_sec=0.25)
@@ -190,6 +199,36 @@ class TestDetectionEdgeCases:
         with pytest.raises(ValueError, match="one shape"):
             events.detect_events(torch.zeros(2, 5), torch.zeros(2, 4),
                                  threshold_db=0.0, hysteresis_db=1.0)
+
+
+class TestDetectionAdversarialTraces:
+    """The traces chip_smoke.py holds the CUDA kernel to on the card
+    (``k6_traces``), at small frame counts and with a small tile and
+    chunk to place their edges: the plain version, the oracle and the
+    reference's XLA and Pallas scans agree bitwise on them."""
+
+    @pytest.mark.parametrize("n_rec,n_frames,min_len,capacity,block", [
+        (1, 1, 1, 16, 8), (8, 31, 3, 3, 8), (13, 33, 1, 3, 4),
+        (4, 64, 3, 16, 2), (13, 97, 1, 4, 8),
+    ])
+    @pytest.mark.parametrize("hyst", [2.0, 0.0])
+    def test_plain_oracle_xla_pallas_bitwise(self, n_rec, n_frames,
+                                             min_len, capacity, block,
+                                             hyst):
+        thr = smoke.EVENT_THRESHOLD_DB
+        spl, pb = smoke.k6_traces(n_rec * 1000 + n_frames, n_rec, n_frames,
+                                  tile=5, chunk=20, thr=thr, hyst=hyst)
+        c, r = run_all(spl, pb, block_records=block, threshold_db=thr,
+                       hysteresis_db=hyst, min_len=min_len,
+                       capacity=capacity)
+        if n_frames > 1:
+            assert np.isnan(spl).any() and np.isposinf(spl).any()
+            assert (c > 0).any()
+        if n_rec >= 3:
+            # record 2 holds one event open from frame 0 to the end
+            assert c[2] == 1 and r[2, 0, :2].tolist() == [0.0, n_frames]
+        if n_frames >= 90:
+            assert (c > capacity).any()
 
 
 @needs_hypothesis

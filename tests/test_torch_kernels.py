@@ -6,8 +6,12 @@ tolerances of tests/test_kernels.py, in float32 and int16.  The CUDA
 kernels themselves run only on the card: the ``cuda``-marked cases
 compare each with its plain version there and skip elsewhere
 (``python -m pytest -m cuda tests/test_torch_kernels.py`` on the GPU;
-chip_smoke.py does the same at the main path's shapes).
+chip_smoke.py does the same at the main path's shapes, and its K3 and K6
+sweeps, which these cases take from it).
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +26,12 @@ from repro_torch.core.params import DepamParams, PCM_DECODE_SCALE
 from repro_torch.core.tol import band_matrix
 from repro_torch.kernels import (common, ct_rfft, events, fftplan, framepsd,
                                  ops, ref, tol as tolk, welch)
+
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 
 
 def _p(nfft, ws, ov, n_frames=10, window="hamming"):
@@ -396,29 +406,51 @@ class TestKernelsOnCard:
         assert torch.equal(got[1], row)
         assert torch.equal(row, framepsd.frame_psd(q[1], p, sc[1]))
 
-    def test_detect_events(self, cuda):
-        rng = np.random.default_rng(3)
-        spl = torch.as_tensor(rng.standard_normal((9, 1000)) * 10,
-                              dtype=torch.float32, device=cuda)
-        pb = torch.as_tensor(rng.integers(0, 129, (9, 1000)),
-                             dtype=torch.int32, device=cuda)
-        kw = dict(threshold_db=8.0, hysteresis_db=2.5, min_len=2,
-                  capacity=6)
-        c, r = events.detect_events(spl, pb, **kw)
-        pc, pr = events.detect_events_plain(spl, pb, **kw)
-        assert torch.equal(c, pc) and torch.equal(r, pr)
-        assert bool((c > 6).any())
+    @pytest.mark.parametrize("seed,n_rec,n_frames,min_len,capacity", [
+        (None, 9, 1000, 2, 6),               # normal noise around thr
+    ] + [(i, *case) for i, case in enumerate(
+        smoke.sweep_k6(events.TILE_FRAMES, events.CHUNK_FRAMES))])
+    def test_detect_events(self, cuda, seed, n_rec, n_frames, min_len,
+                           capacity):
+        """K6 bitwise against its plain version (run on CPU copies), on
+        chip_smoke.py's adversarial traces at every case of its sweep."""
+        if seed is None:
+            rng = np.random.default_rng(3)
+            spl = (rng.standard_normal((n_rec, n_frames)) * 10).astype(
+                np.float32)
+            pb = rng.integers(0, 129, (n_rec, n_frames)).astype(np.int32)
+            thr, hyst = 8.0, 2.5
+        else:
+            spl, pb = smoke.k6_traces(seed, n_rec, n_frames,
+                                      events.TILE_FRAMES,
+                                      events.CHUNK_FRAMES)
+            thr, hyst = smoke.EVENT_THRESHOLD_DB, smoke.EVENT_HYSTERESIS_DB
+        kw = dict(threshold_db=thr, hysteresis_db=hyst, min_len=min_len,
+                  capacity=capacity)
+        c, r = events.detect_events(torch.as_tensor(spl, device=cuda),
+                                    torch.as_tensor(pb, device=cuda), **kw)
+        pc, pr = events.detect_events_plain(torch.as_tensor(spl),
+                                            torch.as_tensor(pb), **kw)
+        assert torch.equal(c.cpu(), pc) and torch.equal(r.cpu(), pr)
+        if seed is None:
+            assert bool((pc > capacity).any())
 
-    @pytest.mark.parametrize("nfft", [256, 4096])
-    @pytest.mark.parametrize("n_rec", [8, 13])
-    def test_welch_mean_and_tol(self, cuda, nfft, n_rec):
-        """K3, and K4 at both paper shapes, with a ragged block of
+    @pytest.mark.parametrize("n_bins", smoke.SWEEP_K3["bins"])
+    @pytest.mark.parametrize("n_frames", smoke.SWEEP_K3["frames"])
+    @pytest.mark.parametrize("n_rec", smoke.SWEEP_K3["records"])
+    def test_welch_mean_and_tol(self, cuda, n_rec, n_frames, n_bins):
+        """K3 at every shape of chip_smoke.py's K3 sweep, the same bits
+        on a second call; and K4 on its output, with a ragged block of
         records at 13; K4 gives the same bits on every call."""
+        nfft = 2 * (n_bins - 1)
         p, _ = _p(nfft, nfft, 0)
-        fp = torch.rand(n_rec, 11, p.n_bins, device=cuda)
+        gen = torch.Generator(cuda).manual_seed(n_rec * n_frames * n_bins)
+        fp = torch.rand(n_rec, n_frames, p.n_bins, device=cuda,
+                        generator=gen)
         got = welch.welch_mean(fp)
         assert _maxrel(got.cpu(), welch.welch_mean_plain(fp).cpu(),
                        1e-9) < 1e-5
+        assert torch.equal(got, welch.welch_mean(fp))
         bm = torch.as_tensor(band_matrix(p), device=cuda)
         levels = tolk.tol_levels(got, bm, p)
         assert float((levels - tolk.tol_levels_plain(got, bm, p))
