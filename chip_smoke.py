@@ -12,24 +12,39 @@ and K5 at every shape the CPU tests give them too, K4 at a ragged
 block of records, K3 at every shape of SWEEP_K3 and K6 bitwise on
 adversarial traces (``k6_traces``) at every case of ``sweep_k6`` --
 and drives two paths over one 45-minute paper file for both paper
-parameter sets:
+parameter sets, each under the synchronous and the pipelined executor
+(``.sync_io()`` / ``.async_io()``):
 
   * the main path, ``repro_torch.api.job(m, p).features("welch", "spl",
-    "tol", "ltsa")``, checked for float32 == int16 payload bitwise,
-    resumed == uninterrupted bitwise and agreement with
-    ``scipy.signal.welch``;
+    "tol", "ltsa")``, checked for agreement with ``scipy.signal.welch``;
   * the detection path, ``.source(api.WavSource(root)).features(
     "percentiles", "spd").events(...)``, read from a wav file that the
     port's ``write_dataset`` writes (a seeded corpus with loud bursts),
-    checked for float32 == int16 and resumed == uninterrupted bitwise,
-    event logs included, for events detected and an overflow flagged.
+    checked for events detected and an overflow flagged once.
+
+On each path and set: float32 and int16 payloads under both executors
+are bitwise equal, event logs included; 2 steps into a store and a
+resumed run (sync -> sync, async -> sync, sync -> async) equal the
+uninterrupted run bitwise; every step after a job's first runs under
+``torch.cuda.set_sync_debug_mode("error")``, so a synchronizing call
+inside a steady-state step fails the run.  Each job prints its wall,
+records/s, x-realtime, peak device memory and its host split (reader
+seconds across threads, the engine's per-phase driver seconds, the
+sink's write seconds, the prefetcher's task statistics).  Then: the
+set-1 detection job's impulsive metrics with the matmul precision set
+to "high", against a float64 oracle; one ``torch.profiler`` window of
+async steps (device busy share, memcpy totals); and the CLI, ``python
+-m repro_torch.launch.depam_run --data-root``, over each set's wav for
+both payloads, pipelined and ``--sync-io``, its stored arrays and event
+logs held bitwise against the library job, and a rerun that resumes.
 
 Launch counters, set to 0 before each path and read after it, show
 which kernels each path went through.  Any failed check raises, so the
 script exits non-zero and never prints the ``ok`` line.
 
 Output, in order: the card (``nvidia-smi`` name and power limit), the
-build, one line per kernel check and per job, a ``{"kernels": [...]}``
+build, one line per kernel check, per job and per CLI run, a
+``{"kernels": [...]}``
 JSON line (per kernel: error, kernel / plain / library times and the
 least time the card could take, launches on the paths run), and last
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
@@ -42,10 +57,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -270,6 +287,49 @@ def detection_job(api, name, p, m, root, payload):
             .window(records=win).payload(payload).device("cuda"))
 
 
+class ReadClock:
+    """Seconds spent inside wrapped reads, added up across the threads
+    that make them (a prefetching source reads on a pool of four)."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self._lock = threading.Lock()
+
+    def reset(self):
+        with self._lock:
+            self.seconds = 0.0
+
+    def time(self, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        with self._lock:
+            self.seconds += time.perf_counter() - t0
+        return out
+
+    def wrap(self, fn):
+        return lambda idx: self.time(fn, idx)
+
+
+def impulsive_oracle(x, onset, dur, p):
+    """One event's impulsive metrics in float64 numpy: SEL and
+    zero-to-peak level (dB), kurtosis, rise time (s), over the event's
+    sample span [onset*hop, (onset+dur-1)*hop + window) of record ``x``."""
+    import numpy as np
+
+    x = np.asarray(x, np.float64)
+    s0 = onset * p.hop
+    s1 = min((onset + dur - 1) * p.hop + p.window_size, len(x))
+    seg = x[s0:s1]
+    e = seg * seg
+    sel = 10.0 * np.log10(max(e.sum() / p.fs, 1e-30)) + p.gain_db
+    peak = 10.0 * np.log10(max(e.max(), 1e-30)) + p.gain_db
+    mean = seg.mean()
+    m2 = ((seg - mean) ** 2).mean()
+    m4 = ((seg - mean) ** 4).mean()
+    return np.array([sel, peak, m4 / max(m2 * m2, 1e-30),
+                     float(np.argmax(e)) / p.fs])
+
+
 def sweep_k6(tile, chunk):
     """K6's sweep cases, (records, frames, min_len, capacity): min_len 1
     and 3 by turns over the frame counts, capacity 16 and 3 by turns
@@ -364,6 +424,7 @@ def main() -> int:
     from repro_torch.core import spectra
     from repro_torch.core.params import (PARAM_SET_1, PARAM_SET_2,
                                          PCM_DECODE_SCALE, DepamParams)
+    from repro_torch.core.store import FeatureStore
     from repro_torch.core.tol import band_matrix
     from repro_torch.core.windows import make_window
     from repro_torch.data.wavio import BlockReader
@@ -777,9 +838,34 @@ def main() -> int:
           f"{overflowed} records over capacity, in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # -- phase 3: the main path ---------------------------------------------
+    # -- phase 3: the main path, under both executors ------------------------
     counters = ops.launch_counters()
     feats = ("welch", "spl", "tol", "ltsa")
+    clock = ReadClock()
+
+    class TimedWavSource(api.WavSource):
+        """WavSource whose reads add their seconds to ``clock``."""
+
+        def fetch(self, indices):
+            return clock.time(super().fetch, indices)
+
+    class TimedMemorySink(api.MemorySink):
+        """MemorySink that adds up the seconds its writes take, on the
+        thread that makes them (an AsyncSink's writer, or the driver)."""
+
+        def __init__(self):
+            super().__init__()
+            self.seconds = 0.0
+
+        def write(self, step, indices, values):
+            t0 = time.perf_counter()
+            super().write(step, indices, values)
+            self.seconds += time.perf_counter() - t0
+
+        def write_events(self, step, indices, values):
+            t0 = time.perf_counter()
+            super().write_events(step, indices, values)
+            self.seconds += time.perf_counter() - t0
 
     def f32_reader(pcm, scales):
         def read(idx):
@@ -808,27 +894,58 @@ def main() -> int:
     def build(name, payload, store=None, limit=None):
         p, m, pcm, scales = sets[name]
         if payload == "int16":
-            src = api.ReaderSource(i16_reader(pcm), payload_dtype="int16",
+            src = api.ReaderSource(clock.wrap(i16_reader(pcm)),
+                                   payload_dtype="int16",
                                    scales=i16_scales(scales))
         else:
-            src = api.ReaderSource(f32_reader(pcm, scales))
+            src = api.ReaderSource(clock.wrap(f32_reader(pcm, scales)))
         win = 15 if name == "set1" else 90     # 15-minute LTSA panels
         j = (api.job(m, p).features(*feats).window(records=win)
              .source(src).device("cuda").limit(limit))
         return j.to(store) if store is not None else j
 
-    def timed(label, name, j):
-        p, m = sets[name][:2]
+    def run(label, name, j, sink):
+        """Drive job ``j`` (whose sink is ``sink``) through its stepper,
+        every step after the first under
+        ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing
+        call inside a steady-state step raises and fails the run.  Prints
+        the wall, records/s, x-realtime, peak device memory and the host
+        split; returns the result and the split."""
+        p = sets[name][0]
+        clock.reset()
+        st = j._stepper()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = j.run()
+        try:
+            st.start()
+            st.step_once()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                while st.step_once():
+                    pass
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out = st.finish()
+        finally:
+            st.close()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        res = api.JobResult(features=out[0], epoch=out[1], windows=out[2],
+                            window_edges=out[3], n_records=out[4],
+                            events=out[5], plan=out[6])
         n = res.n_records
-        print(f"job {label}: {n} records in {dt:.3f} s, "
-              f"{n / dt:.2f} records/s, "
-              f"{n * p.record_size_sec / dt:.1f} x realtime")
-        return res
+        print(f"job {label}: {n} records in {dt:.3f} s, {n / dt:.2f} "
+              f"records/s, {n * p.record_size_sec / dt:.1f} x realtime, "
+              f"peak device memory {peak_gb:.3f} GB")
+        split = {"wall_s": dt, "steps": st.pl.n_steps,
+                 "read_s": clock.seconds,
+                 **{f"{k}_s": v for k, v in st.host_seconds.items()},
+                 "sink_write_s": sink.seconds,
+                 "prefetch": getattr(st.source, "last_stats", None)}
+        print(f"host split {label}: {json.dumps(split)}")
+        return res, split
 
     def same(a, b):
         return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
@@ -838,53 +955,73 @@ def main() -> int:
         return all(same(ra[k], rb[k]) for k in names)
 
     launches = {c: 0 for c in counters}
+    executors = {"sync": lambda j: j.sync_io(), "async": lambda j: j.async_io()}
 
     def drive(path, name, make, expected, equal):
         """One path at one set, through ``make(name, payload, store,
-        limit)``: a warm-up step; the timed float32 job, with every
-        count set to 0 just before it and read just after; the int16
-        job, == float32 bitwise; 2 steps into a store then a resumed
-        run, == uninterrupted bitwise.  Returns the float32 result and
-        the warnings its run issued."""
+        limit)``: a warm-up step; the float32 job under the synchronous
+        executor, with every count set to 0 just before it and read just
+        after; then float32 async and int16 sync and async, each ==
+        float32 sync bitwise; then 2 steps into a store and a resumed
+        run, for sync -> sync, async -> sync and sync -> async, each ==
+        uninterrupted bitwise.  Returns the float32 sync result and the
+        warnings its run issued."""
         label = f"{name} {path}"
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
             make(name, "float32", limit=1).run()        # warm-up step
-        for c in counters.values():
-            c.reset()
-        torch.cuda.reset_peak_memory_stats()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            res = timed(f"{label} float32", name, make(name, "float32"))
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        seen = {c: counters[c].count for c in counters}
-        print(f"{label} launches: {seen}; peak device memory "
-              f"{peak_gb:.3f} GB")
-        for c, n in seen.items():
-            launches[c] += n
-            check((n > 0) == (c in expected),
-                  f"{label} launched {c} {n} times")
-
+        results, reads = {}, {}
+        for payload in ("float32", "int16"):
+            for ex, mode in executors.items():
+                first = (payload, ex) == ("float32", "sync")
+                for c in counters.values():
+                    c.reset()
+                sink = TimedMemorySink()
+                with warnings.catch_warnings(record=first) as caught_now:
+                    if first:
+                        warnings.simplefilter("always")
+                    else:
+                        warnings.simplefilter("ignore", RuntimeWarning)
+                    res, split = run(f"{label} {payload} {ex}", name,
+                                     mode(make(name, payload)).to(sink),
+                                     sink)
+                seen = {c: counters[c].count for c in counters}
+                print(f"{label} {payload} {ex} launches: {seen}")
+                if first:
+                    caught = caught_now
+                    for c, n in seen.items():
+                        launches[c] += n
+                        check((n > 0) == (c in expected),
+                              f"{label} launched {c} {n} times")
+                else:
+                    check(all(seen[c] > 0 for c in expected),
+                          f"{label} {payload} {ex} run missed a kernel")
+                results[(payload, ex)] = res
+                reads[(payload, ex)] = split["read_s"]
+        base = results[("float32", "sync")]
+        for key, res in results.items():
+            check(equal(base, res), f"{label} {key} != float32 sync bitwise")
+        print(f"{label}: float32 and int16 payloads x sync and async "
+              f"executors all bitwise equal")
+        print(f"{label}: host decode (float32 read - int16 read, sync): "
+              f"{reads[('float32', 'sync')] - reads[('int16', 'sync')]:.4f}"
+              f" s")
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", RuntimeWarning)
-            for c in counters.values():
-                c.reset()
-            res_q = timed(f"{label} int16", name, make(name, "int16"))
-            check(all(counters[c].count > 0 for c in expected),
-                  f"{label} int16 run missed a kernel")
-            check(equal(res, res_q), f"{label} int16 != float32 bitwise")
-            print(f"{label}: int16 payload == float32 payload bitwise")
-
-            with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-                make(name, "float32", store=d, limit=2).run()
-                j = make(name, "float32", store=d)
-                check(j.resume_step() == 2,
-                      f"{label} store did not commit 2 steps")
-                check(equal(res, j.run()),
-                      f"{label} resumed run != uninterrupted run bitwise")
-            print(f"{label}: resumed (limit 2 + rerun) == uninterrupted "
-                  f"bitwise")
-        return res, caught
+            for first, second in (("sync", "sync"), ("async", "sync"),
+                                  ("sync", "async")):
+                with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+                    executors[first](make(name, "float32", store=d,
+                                          limit=2)).run()
+                    j = make(name, "float32", store=d)
+                    check(j.resume_step() == 2,
+                          f"{label} store did not commit 2 steps")
+                    check(equal(base, executors[second](j).run()),
+                          f"{label} {first} limit 2 + {second} resume != "
+                          f"uninterrupted run bitwise")
+                print(f"{label}: {first} (limit 2) + {second} resume == "
+                      f"uninterrupted bitwise")
+        return base, caught
 
     expected = {"set1": {"welch_psd", "tol_levels"},
                 "set2": {"ct_frame_psd", "welch_mean", "tol_levels"}}
@@ -919,7 +1056,8 @@ def main() -> int:
 
     def detect(name, payload, store=None, limit=None):
         p, m = sets[name][:2]
-        j = detection_job(api, name, p, m, wavs[name], payload).limit(limit)
+        j = (detection_job(api, name, p, m, wavs[name], payload)
+             .source(TimedWavSource(wavs[name])).limit(limit))
         return j.to(store) if store is not None else j
 
     def logs_equal(ra, rb):
@@ -928,11 +1066,13 @@ def main() -> int:
             and same(ra.events[k].rows, rb.events[k].rows)
             for k in ra.events)
 
+    det_results = {}
     for name in ("set1", "set2"):
         p, m = sets[name][:2]
         res, caught = drive(
             "detection", name, detect, det_expected[name],
             lambda ra, rb: all_equal(ra, rb) and logs_equal(ra, rb))
+        det_results[name] = res
         ev, imp = res.events["events"], res.events["impulsive"]
         warned = [w for w in caught
                   if "event capacity overflow" in str(w.message)]
@@ -941,7 +1081,7 @@ def main() -> int:
               f"max count {int(ev.counts.max())} (capacity {ev.capacity}), "
               f"overflow in records {np.flatnonzero(ev.overflow).tolist()}, "
               f"{len(warned)} overflow warning(s); event logs included in "
-              f"both bitwise checks")
+              f"every bitwise check")
         check(ev.n_events > 0, f"{name} detected no event")
         check(bool(ev.overflow.any()) and len(warned) == 1,
               f"{name} overflow not flagged once")
@@ -954,11 +1094,172 @@ def main() -> int:
               and res["spd"].shape == (n_win, p.n_bins, 60)
               and bool(np.isfinite(res["spd"]).all()),
               f"{name} detection output shapes")
+
+    # -- phase 5: the impulsive einsums under matmul precision "high" --------
+    # TF32 is a process-wide setting the port does not pin for its own
+    # torch matmuls; hold the set-1 detection job's impulsive metrics, run
+    # with it allowed, against a float64 oracle at the CPU test's
+    # tolerances (sel, peak 1e-3 dB; kurtosis 1e-3 rel + 1e-3; rise 2/fs)
+    p, m = sets["set1"][:2]
+    torch.set_float32_matmul_precision("high")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            res_hi = detect("set1", "float32").run()
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "matmul precision not restored")
+    reader = BlockReader(wavs["set1"], m)
+    for label, res in (("highest", det_results["set1"]), ("high", res_hi)):
+        ev, imp = res.events["events"], res.events["impulsive"]
+        errs = np.zeros(4)
+        for i in range(m.n_records):
+            x = reader(np.array([i]))[0]
+            for row, got in zip(ev.record(i), imp.record(i)):
+                want = impulsive_oracle(x, int(row[0]), int(row[1]), p)
+                errs = np.maximum(errs, np.abs(got - want) / np.array(
+                    [1.0, 1.0, max(abs(want[2]), 1.0), 1.0]))
+        print(f"impulsive set1 under matmul precision {label!r}: "
+              f"{ev.n_events} events, max err sel {errs[0]:.3e} dB, peak "
+              f"{errs[1]:.3e} dB, kurtosis {errs[2]:.3e} (relative above "
+              f"1), rise {errs[3]:.3e} s (tol 1e-3, 1e-3, 1e-3, "
+              f"{2.0 / p.fs:.3e})")
+        check(errs[0] < 1e-3 and errs[1] < 1e-3 and errs[2] < 1e-3
+              and errs[3] <= 2.0 / p.fs,
+              f"impulsive metrics under precision {label!r} off the "
+              f"float64 oracle")
+    reader.close()
+    del res_hi
+
+    # -- phase 6: one profiled window of async steps -------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sink = TimedMemorySink()
+    st = detect("set1", "float32").to(sink).async_io()._stepper()
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            st.start()
+            st.step_once()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                while st.step_once():
+                    pass
+                st.finish()
+                torch.cuda.synchronize()
+                window_s = time.perf_counter() - t0
+    finally:
+        st.close()
+    evs = list(prof.events())
+    on_dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in evs if e.device_type == DeviceType.CUDA)
+    if on_dev:
+        busy, end = 0.0, -math.inf
+        for a, b, _ in on_dev:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        span = (max(e.time_range.end for e in evs)
+                - min(e.time_range.start for e in evs))
+        memcpy = {}
+        for a, b, nm in on_dev:
+            kind = next((k for k in ("HtoD", "DtoH", "DtoD") if k in nm),
+                        None) if "Memcpy" in nm else None
+            if kind is not None:
+                n, us = memcpy.get(kind, (0, 0.0))
+                memcpy[kind] = (n + 1, us + b - a)
+        print(f"profile set1 detection float32 async, {st.pl.n_steps - 1} "
+              f"steps after the first ({window_s:.3f} s wall): device busy "
+              f"{busy / 1e3:.3f} ms of the {span / 1e3:.3f} ms traced "
+              f"({busy / span:.1%}); memcpy "
+              + ", ".join(f"{k} {n} calls {us / 1e3:.3f} ms"
+                          for k, (n, us) in sorted(memcpy.items())))
+    else:
+        print("profile set1 detection float32 async: the profiler recorded "
+              "no device activity; device busy share not measured")
+
+    # -- phase 7: the CLI on the card -----------------------------------------
+    fields = {"records", "seconds", "gb", "gb_per_min", "records_per_sec",
+              "x_realtime", "executor", "payload", "features", "window",
+              "windows", "events", "output"}
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli_tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+
+    def cli(name, payload, mode):
+        p = sets[name][0]
+        out = str(Path(cli_tmp.name) / f"{name}-{payload}-{mode}")
+        args = [sys.executable, "-m", "repro_torch.launch.depam_run",
+                "--data-root", wavs[name], "--param-set", name[-1],
+                "--features", "percentiles,spd", "--events",
+                f"--event-threshold-db={EVENT_THRESHOLD_DB}",
+                f"--event-hysteresis-db={EVENT_HYSTERESIS_DB}",
+                "--window", "15" if name == "set1" else "90",
+                "--chunk-records", "8", "--payload", payload, "--out", out]
+        if mode == "sync":
+            args.append("--sync-io")
+        t0 = time.perf_counter()
+        proc = subprocess.run(args, env=env, capture_output=True, text=True,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"CLI {name} {payload} {mode} exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        store = FeatureStore(out)
+        stored = {"percentiles": np.load(f"{out}/percentiles.npy"),
+                  "spd": np.load(f"{out}/spd.npy")}
+        for ev_name, cols in (("events", api.EVENT_COLUMNS),
+                              ("impulsive", api.IMPULSIVE_COLUMNS)):
+            stored[ev_name] = store.load_events(ev_name, len(cols))
+        return out, proc.stdout, wall, stored
+
+    def stored_equal(stored, res):
+        return (same(stored["percentiles"], res["percentiles"])
+                and same(stored["spd"], res["spd"])
+                and all(same(stored[k][0], res.events[k].counts)
+                        and same(stored[k][1], res.events[k].rows)
+                        for k in ("events", "impulsive")))
+
+    for name in ("set1", "set2"):
+        for payload in ("float32", "int16"):
+            for mode in ("pipelined", "sync"):
+                out, log, wall, stored = cli(name, payload, mode)
+                with open(f"{out}/summary.json") as f:
+                    summary = json.load(f)
+                check(set(summary) == fields,
+                      f"CLI summary.json fields {sorted(summary)}")
+                check(stored_equal(stored, det_results[name]),
+                      f"CLI {name} {payload} {mode} arrays != library job")
+                print(f"CLI {name} {payload} {mode}: process wall "
+                      f"{wall:.1f} s, job {summary['seconds']:.3f} s, "
+                      f"{summary['records_per_sec']:.2f} records/s, "
+                      f"{summary['x_realtime']:.1f} x realtime, executor "
+                      f"{summary['executor']!r}; stored arrays and event "
+                      f"logs == library job bitwise")
+        if name == "set1":
+            out, log, wall, stored = cli(name, "int16", "pipelined")
+            check("[depam] resuming at step" in log
+                  and stored_equal(stored, det_results[name]),
+                  f"CLI rerun did not resume or changed its arrays: {log}")
+            notice = next(ln for ln in log.splitlines() if "resuming" in ln)
+            print(f"CLI {name} int16 pipelined rerun: {notice!r}; arrays "
+                  f"unchanged")
+    cli_tmp.cleanup()
     wav_tmp.cleanup()
 
     p, m = sets["set1"][:2]
-    res = timed("set1 device synthesis, default entry point", "set1",
-                api.job(m, p))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = api.job(m, p).run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"job set1 device synthesis, default entry point: "
+          f"{res.n_records} records in {dt:.3f} s, "
+          f"{res.n_records / dt:.2f} records/s, "
+          f"{res.n_records * p.record_size_sec / dt:.1f} x realtime")
     check(res["welch"].shape == (m.n_records, p.n_bins)
           and bool(np.isfinite(res["welch"]).all())
           and bool(np.isfinite(res["tol"]).all()),

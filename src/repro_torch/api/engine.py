@@ -20,12 +20,37 @@ Every reduction inside a step runs in a fixed order — a loop over the
 step's few window ids, each a ``sum``/``amin``/``amax`` over the rows
 that hit it — never a scatter with float atomics, so a resumed job is
 bitwise-identical to an uninterrupted one and the int16 payload to the
-float32 one.  This slice has the synchronous executor; the pipelined
-one (streams, pinned buffers, prefetch) is a later slice.
+float32 one.
+
+The pipelined executor (:class:`ExecOptions`) changes only *when* the
+host waits, never what the device computes:
+
+  * host→device: each step's payload, mask, decode scales and window
+    row indices are staged in pinned host buffers and copied with
+    ``non_blocking`` on a dedicated copy stream; the compute stream
+    (the current stream, on which every kernel launches) waits on that
+    copy's CUDA event, so nothing in a step synchronizes the host;
+  * device→host: at dispatch, the stored features, the ragged slabs
+    and (for commit-consuming sinks) the carry as it stands after this
+    step start copying into fresh pinned buffers on a second stream;
+    draining a step waits on that step's event only;
+  * up to ``inflight`` steps stay dispatched before the oldest drains
+    into the sink; ``finish`` drains the rest;
+  * the job builder adds a :class:`~repro_torch.api.sources.
+    PrefetchSource` (host reads ahead on a thread pool) and an
+    :class:`~repro_torch.api.sinks.AsyncSink` (sink IO on a writer
+    thread).
+
+``ExecOptions()`` (the default) is the synchronous loop.  On the CPU
+device the same queue runs over plain tensors: there are no streams or
+pinned buffers to use.  Sync and async results are bitwise-equal
+(``tests/test_torch_async.py``).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import time
 import warnings
 from typing import Callable
 
@@ -40,6 +65,33 @@ from .features import (EPOCH_WINDOW, FeatureContext, FeatureSpec,
                        Reduction, StateField, Window)
 from .sinks import Sink
 from .sources import Source, synth_record
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecOptions:
+    """Executor knobs; the default is the fully synchronous loop.
+
+    ``inflight`` — device steps allowed in flight before the driver
+    drains the oldest into the sink (0 = drain at once, i.e. sync).
+    ``prefetch_depth`` — plan steps of host read-ahead; the job builder
+    wraps host-fed sources in a ``PrefetchSource`` of this depth (0 =
+    fetch inline).  ``queue_size`` — AsyncSink backpressure bound, in
+    steps.  ``donate`` — PyTorch has no buffer donation; here it means
+    that the engine drops its reference to a step's device payload right
+    after dispatch, so the caching allocator can hand that memory to the
+    next step's payload once the step's kernels are done with it (False
+    keeps each payload alive until its step drains).
+    """
+
+    inflight: int = 0
+    prefetch_depth: int = 0
+    queue_size: int = 8
+    donate: bool = True
+
+    def __post_init__(self):
+        if self.inflight < 0 or self.prefetch_depth < 0 \
+                or self.queue_size < 1:
+            raise ValueError(f"invalid ExecOptions: {self}")
 
 
 def compile_step(specs: tuple[FeatureSpec, ...], m: DatasetManifest,
@@ -78,9 +130,9 @@ def compile_step(specs: tuple[FeatureSpec, ...], m: DatasetManifest,
                 out[s.name] = val
                 continue
             fmask = mask.reshape(lead + (1,) * (val.ndim - len(lead)))
-            out[s.name] = torch.where(
-                fmask, val, torch.tensor(s.fill, dtype=val.dtype,
-                                         device=val.device))
+            # a Python scalar, not a tensor built per step: that would be
+            # a blocking host->device copy
+            out[s.name] = torch.where(fmask, val, float(s.fill))
         return out
 
     def step(payload, mask, scales=None):
@@ -158,25 +210,54 @@ _IDENTITY = {"sum": 0.0, "ksum": 0.0, "min": float("inf"),
              "max": -float("inf")}
 
 
-def _segment_reduce(merge: str, contribs: torch.Tensor, wids: np.ndarray,
-                    n_windows: int) -> torch.Tensor:
+def _window_rows(wids: dict[str, np.ndarray]
+                ) -> tuple[dict[str, list], np.ndarray]:
+    """Host half of the fixed-order segment reduce.
+
+    ``wids`` maps each window key to the step's ``(n_shards, chunk)``
+    window ids.  Returns ``segments[key]``, per logical shard the window
+    ids the step hits (ascending) each with the ``[lo, hi)`` range of its
+    row indices, and those row indices (into the shard's own rows) as
+    ONE flat int64 array, which ships to the device with the step's
+    other host arrays."""
+    segments, parts, n = {}, [], 0
+    for key, w in wids.items():
+        per_shard = []
+        for ws in w.reshape(w.shape[0], -1):
+            runs = []
+            for wid in np.unique(ws):
+                r = np.flatnonzero(ws == wid)
+                runs.append((int(wid), n, n + r.size))
+                parts.append(r)
+                n += r.size
+            per_shard.append(runs)
+        segments[key] = per_shard
+    rows = np.concatenate(parts) if parts else np.zeros(0)
+    return segments, rows.astype(np.int64)
+
+
+_IDENTITY = {"sum": 0.0, "ksum": 0.0, "min": float("inf"),
+             "max": -float("inf")}
+
+
+def _segment_reduce(merge: str, contribs: torch.Tensor, runs,
+                    rows: torch.Tensor, n_windows: int) -> torch.Tensor:
     """Reduce rows into window slots in a fixed order: for each window
-    id present in the step (host-known, ascending), one reduction over
-    the rows that hit it.  Absent windows hold the merge identity."""
+    id of ``runs`` (host-known, ascending), one reduction over the rows
+    ``rows[lo:hi]`` that hit it.  Absent windows hold the merge
+    identity."""
     out = torch.full((n_windows,) + tuple(contribs.shape[1:]),
                      _IDENTITY[merge], dtype=contribs.dtype,
                      device=contribs.device)
-    for w in np.unique(wids):
-        rows = torch.as_tensor(np.flatnonzero(wids == w),
-                               device=contribs.device)
-        sel = contribs.index_select(0, rows)
+    for w, lo, hi in runs:
+        sel = contribs.index_select(0, rows[lo:hi])
         if merge in ("sum", "ksum"):
             red = sel.sum(dim=0, dtype=contribs.dtype)
         elif merge == "min":
             red = sel.amin(dim=0)
         else:
             red = sel.amax(dim=0)
-        out[int(w)] = red
+        out[w] = red
     return out
 
 
@@ -184,19 +265,20 @@ _COMBINE = {"sum": torch.add, "ksum": torch.add, "min": torch.minimum,
             "max": torch.maximum}
 
 
-def _merged_segments(merge: str, contribs: torch.Tensor, wids: np.ndarray,
-                     n_windows: int, n_shards: int) -> torch.Tensor:
+def _merged_segments(merge: str, contribs: torch.Tensor, shard_runs,
+                     rows: torch.Tensor, n_windows: int) -> torch.Tensor:
     """Per-logical-shard window partials merged in ascending shard order
     (a resumed partitioned plan keeps its shard count, so the order of
     every add is fixed by the plan)."""
+    n_shards = len(shard_runs)
     if n_shards == 1:
-        return _segment_reduce(merge, contribs, wids.reshape(-1), n_windows)
+        return _segment_reduce(merge, contribs, shard_runs[0], rows,
+                               n_windows)
     c = contribs.reshape((n_shards, -1) + tuple(contribs.shape[1:]))
-    w = wids.reshape(n_shards, -1)
-    part = _segment_reduce(merge, c[0], w[0], n_windows)
+    part = _segment_reduce(merge, c[0], shard_runs[0], rows, n_windows)
     for s in range(1, n_shards):
-        part = _COMBINE[merge](part,
-                               _segment_reduce(merge, c[s], w[s], n_windows))
+        part = _COMBINE[merge](part, _segment_reduce(
+            merge, c[s], shard_runs[s], rows, n_windows))
     return part
 
 
@@ -204,16 +286,15 @@ def compile_reduce_update(bindings: tuple[ReductionBinding, ...]
                           ) -> Callable:
     """Multi-window carry update: state' = state ⊕ step contributions.
 
-    Takes ``(state, outputs, mask, wids)``: ``state`` maps
+    Takes ``(state, outputs, mask, segments, rows)``: ``state`` maps
     ``__r:<window>:<out>:<field>`` to an ``(n_windows, *shape)`` device
     tensor (plus ``:c`` Kahan companions and the ``__live__`` count),
     ``mask`` is the step's ``(n_shards, chunk)`` live mask on the
-    device, and ``wids`` maps each window key to the step's host-side
-    ``(n_shards, chunk)`` window ids.
+    device, and ``segments``/``rows`` are :func:`_window_rows` of the
+    step's window ids, the row indices on the device.
     """
 
-    def update(state, out, mask, wids):
-        n_shards = mask.shape[0]
+    def update(state, out, mask, segments, rows):
         fmask = mask.reshape(-1)
         new = {}
         for b in bindings:
@@ -223,7 +304,8 @@ def compile_reduce_update(bindings: tuple[ReductionBinding, ...]
             for f in b.fields:
                 key = _sk(b, f.name)
                 part = _merged_segments(f.merge, contribs[f.name],
-                                        wids[b.wkey], b.n_windows, n_shards)
+                                        segments[b.wkey], rows,
+                                        b.n_windows)
                 if f.merge == "ksum":
                     y = part - state[key + ":c"]
                     t = state[key] + y
@@ -330,21 +412,132 @@ class Compiler:
 DEFAULT_COMPILER = Compiler()
 
 
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.int16): torch.int16,
+                 np.dtype(np.int64): torch.int64,
+                 np.dtype(np.bool_): torch.bool}
+
+
+class _HostToDevice:
+    """One job's host->device path.
+
+    On a CUDA device each step's host arrays are copied into pinned
+    staging buffers (one set per slot, slots used in turn), then into
+    fresh device tensors with ``non_blocking`` copies on a dedicated
+    copy stream; the compute stream waits on the copy's event.  A slot
+    is refilled only after the copy that last read it has completed, and
+    every device tensor is marked as used by the compute stream, so the
+    caching allocator does not hand its memory out while a kernel may
+    still read it.  On the CPU the arrays become tensors in place.
+    """
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device)
+            self._slots = [{} for _ in range(max(2, slots))]
+            self._copied: list = [None] * len(self._slots)
+            self._next = 0
+
+    def ship(self, arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        if not self.cuda:
+            return {k: torch.as_tensor(a) for k, a in arrays.items()}
+        slot = self._next
+        self._next = (slot + 1) % len(self._slots)
+        if self._copied[slot] is not None:
+            self._copied[slot].synchronize()
+        bufs = self._slots[slot]
+        compute = torch.cuda.current_stream(self.device)
+        out = {}
+        with torch.cuda.stream(self.stream):
+            for name, a in arrays.items():
+                a = np.ascontiguousarray(a)
+                dtype = _TORCH_DTYPES[a.dtype]
+                buf = bufs.get(name)
+                if buf is None or buf.dtype != dtype or buf.numel() < a.size:
+                    buf = bufs[name] = torch.empty(a.size, dtype=dtype,
+                                                   pin_memory=True)
+                host = buf[:a.size].view(a.shape)
+                np.copyto(host.numpy(), a)
+                # allocated on the copy stream, which writes it first
+                dev = torch.empty(a.shape, dtype=dtype, device=self.device)
+                dev.copy_(host, non_blocking=True)
+                dev.record_stream(compute)
+                out[name] = dev
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        self._copied[slot] = done
+        compute.wait_event(done)
+        return out
+
+
+class _DeviceToHost:
+    """One job's device->host path.
+
+    ``start`` (at dispatch) copies a step's device tensors into FRESH
+    pinned host tensors on a second stream, after the compute stream's
+    work so far, and returns the step's pending copy; ``wait`` (at
+    drain) waits on that copy's event alone and returns numpy views.  A
+    pinned buffer is never refilled while a view of it is alive (the
+    host allocator recycles it only once freed), so arrays taken from it
+    stay the receiver's own.  On the CPU ``start`` returns numpy views
+    of the tensors themselves, which no later step writes.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device)
+
+    def start(self, tensors: dict) -> tuple:
+        if not self.cuda:
+            return None, {k: t.numpy() for k, t in tensors.items()}
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        host = {}
+        with torch.cuda.stream(self.stream):
+            for k, t in tensors.items():
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t.record_stream(self.stream)
+                host[k] = h
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return done, host
+
+    def wait(self, pending: tuple) -> dict:
+        done, host = pending
+        if done is None:
+            return host
+        done.synchronize()
+        return {k: h.numpy() for k, h in host.items()}
+
+
 class JobStepper:
     """One job as a resumable sequence of steps.
 
     ``start()`` binds the source, builds the step, opens the sink and
-    restores committed state; ``step_once()`` runs one plan step and
-    drains it into the sink (returning False when none remain);
-    ``finish()`` finalizes windows and epoch aggregates; ``close()``
-    releases source and sink and must run even when another method
-    raised.
+    restores committed state; ``step_once()`` dispatches one plan step
+    and drains the oldest in-flight steps past ``options.inflight``
+    into the sink (returning False when none remain); ``finish()``
+    drains the rest and finalizes windows and epoch aggregates;
+    ``close()`` releases source and sink and must run even when another
+    method raised.
+
+    ``host_seconds`` accumulates the driver thread's wall time per phase
+    of a step: ``fetch`` (waiting for the source's payload), ``h2d``
+    (staging and enqueueing the host->device copies), ``dispatch``
+    (enqueueing the step, the carry update and the device->host copies),
+    ``d2h_wait`` (waiting for a drained step's copies) and ``sink``
+    (compaction and the sink calls; with an AsyncSink, the enqueue).
     """
 
     def __init__(self, m: DatasetManifest, p: DepamParams,
                  specs: list[FeatureSpec], source: Source, sink: Sink,
                  pl_: ShardPlan, use_kernels: bool,
                  max_steps: int | None = None,
+                 options: ExecOptions | None = None,
                  window: Window | None = None,
                  compiler: Compiler | None = None,
                  device: torch.device = torch.device("cuda")):
@@ -356,12 +549,17 @@ class JobStepper:
         self.pl = pl_
         self.use_kernels = use_kernels
         self.max_steps = max_steps
+        self.options = options or ExecOptions()
         self.window = window
         self.compiler = compiler or DEFAULT_COMPILER
         self.device = torch.device(device)
+        self.host_seconds = dict.fromkeys(
+            ("fetch", "h2d", "dispatch", "d2h_wait", "sink"), 0.0)
         self._started = False
         self._closed = False
         self._result = None
+        self._stream = None
+        self._inflight: collections.deque = collections.deque()
         self._windows_out: dict[str, np.ndarray] = {}
         self._overflowed = False     # event-capacity warning fired once
 
@@ -428,6 +626,8 @@ class JobStepper:
                                         start_cursor)
             if start_step > 0 else 0
             for b in self._windowed}
+        self._h2d = _HostToDevice(self.device, self.options.inflight + 1)
+        self._d2h = _DeviceToHost(self.device)
         self._stream = None if source.device_synth \
             else source.stream(pl_, start_step, self._n_steps)
         self._started = True
@@ -438,39 +638,74 @@ class JobStepper:
         return self._started and (self._result is not None
                                   or self._step >= self._n_steps)
 
+    def _host_arrays(self, idx: np.ndarray, mask: np.ndarray,
+                     rows: np.ndarray) -> dict:
+        """The step's host arrays bound for the device: mask, window row
+        indices and, for host-fed sources, the payload (+ the int16
+        path's decode scales)."""
+        arrays = {"mask": mask, "rows": rows}
+        if self.source.device_synth:
+            return arrays
+        t0 = time.perf_counter()
+        payload = np.asarray(next(self._stream))
+        self.host_seconds["fetch"] += time.perf_counter() - t0
+        if self._raw:
+            if payload.dtype != np.int16:
+                raise TypeError(
+                    f"int16 payload path got {payload.dtype} from "
+                    f"{type(self.source).__name__}.stream — the "
+                    f"source's payload_dtype promises raw '<i2' PCM")
+            arrays["scales"] = np.asarray(self.source.scales(idx),
+                                          np.float32)
+        else:
+            payload = payload.astype(np.float32, copy=False)
+        arrays["payload"] = payload
+        return arrays
+
     def step_once(self) -> bool:
-        """Run one plan step and drain it into the sink; returns False
-        when no step remains."""
+        """Dispatch one plan step (and drain past ``inflight``); returns
+        False when no step remains."""
         if not self._started:
             raise RuntimeError("JobStepper.step_once before start()")
         if self.done:
             return False
-        step, dev = self._step, self.device
+        clock = time.perf_counter
+        step = self._step
         idx = self.pl.step_indices(step)
         mask = self.pl.step_mask(step)
-        dmask = torch.as_tensor(mask, device=dev)
-        wids = {k: w.ids(idx, self.m) for k, w in self._wins.items()}
+        segments, rows = _window_rows(
+            {k: w.ids(idx, self.m) for k, w in self._wins.items()})
+        host = self._host_arrays(idx, mask, rows)
+        t0 = clock()
+        dev = self._h2d.ship(host)
+        t1 = clock()
         if self.source.device_synth:
-            out = self._step_fn(idx, dmask)
+            out = self._step_fn(idx, dev["mask"])
+        elif self._raw:
+            out = self._step_fn(dev["payload"], dev["mask"], dev["scales"])
         else:
-            payload = np.asarray(next(self._stream))
-            if self._raw:
-                if payload.dtype != np.int16:
-                    raise TypeError(
-                        f"int16 payload path got {payload.dtype} from "
-                        f"{type(self.source).__name__}.stream — the "
-                        f"source's payload_dtype promises raw '<i2' PCM")
-                scales = torch.as_tensor(self.source.scales(idx),
-                                         dtype=torch.float32, device=dev)
-                out = self._step_fn(torch.as_tensor(payload, device=dev),
-                                    dmask, scales)
-            else:
-                out = self._step_fn(
-                    torch.as_tensor(payload.astype(np.float32, copy=False),
-                                    device=dev), dmask)
-        self._agg_state = self._agg_fn(self._agg_state, out, dmask, wids)
-        self._drain(step, idx, mask, out)
+            out = self._step_fn(dev["payload"], dev["mask"])
+        self._agg_state = self._agg_fn(self._agg_state, out, dev["mask"],
+                                       segments, dev["rows"])
+        # what the drain reads, copied from THIS step's state: the carry
+        # a commit persists must match the step's cursor, however many
+        # steps have been dispatched since
+        fetch = {("feature", name): out[name] for name in self._shapes}
+        for name in self._ragged:
+            fetch[("counts", name)] = out[name]["counts"]
+            fetch[("rows", name)] = out[name]["rows"]
+        commit = self.sink.wants_commit
+        if commit:
+            fetch.update({("carry", k): v
+                          for k, v in self._agg_state.items()})
+        pending = self._d2h.start(fetch)
+        payload = None if self.options.donate else dev.get("payload")
+        self._inflight.append((step, idx, mask, pending, commit, payload))
         self._step += 1
+        self.host_seconds["h2d"] += t1 - t0
+        self.host_seconds["dispatch"] += clock() - t1
+        while len(self._inflight) > self.options.inflight:
+            self._drain()
         return True
 
     def _flush_closed(self, host_state, cursor):
@@ -486,34 +721,42 @@ class JobStepper:
                                         rows.astype(np.float32))
                 self._flushed[b.out_name] = closed
 
-    def _drain(self, step, idx, mask, out):
-        """Copy one step's outputs to the host, write, and commit."""
+    def _drain(self):
+        """Wait for the oldest in-flight step's copies, then write and
+        commit it."""
+        step, idx, mask, pending, commit, _payload = \
+            self._inflight.popleft()
+        t0 = time.perf_counter()
+        host = self._d2h.wait(pending)
+        t1 = time.perf_counter()
         keep = mask.reshape(-1)
         sel = idx.reshape(-1)[keep]
-        values = {name: out[name].cpu().numpy().reshape(
+        # boolean selection copies: the sink gets arrays of its own
+        values = {name: host[("feature", name)].reshape(
                       (-1,) + self._shapes[name])[keep]
                   for name in self._shapes}
         self.sink.write(step, sel, values)
         if self._ragged:
-            self.sink.write_events(step, sel, self._compact(out, keep))
-        if self.sink.wants_commit:
+            self.sink.write_events(step, sel, self._compact(host, keep))
+        if commit:
             # the carry in its NATIVE dtypes (float32 / int32): resume
             # casts losslessly, _finalize_rows widens to float64 itself
-            agg_host = {k: v.cpu().numpy()
-                        for k, v in self._agg_state.items()
-                        if k != "__live__"}
+            agg_host = {k: v for (kind, k), v in host.items()
+                        if kind == "carry" and k != "__live__"}
             self._flush_closed(agg_host, self.pl.cursor_after(step))
             self.sink.commit(self.pl, step, agg_host,
-                             float(self._agg_state["__live__"]))
+                             float(host[("carry", "__live__")]))
+        self.host_seconds["d2h_wait"] += t1 - t0
+        self.host_seconds["sink"] += time.perf_counter() - t1
 
-    def _compact(self, out, keep):
+    def _compact(self, host, keep):
         """Host-side compaction: the device returned fixed-capacity
         slabs; only the first min(count, capacity) rows of each live
         record enter the append-only log, in record order."""
         ev = {}
         for name in self._ragged:
-            counts = out[name]["counts"].cpu().numpy().reshape(-1)[keep]
-            rows = out[name]["rows"].cpu().numpy()
+            counts = host[("counts", name)].reshape(-1)[keep]
+            rows = host[("rows", name)]
             rows = rows.reshape((-1,) + rows.shape[-2:])[keep]
             cap = rows.shape[1]
             slot = np.arange(cap)[None, :] < np.minimum(counts, cap)[:, None]
@@ -531,15 +774,18 @@ class JobStepper:
         return ev
 
     def finish(self):
-        """Finalize every window (trailing partial ones included) and the
-        epoch aggregates; idempotent.  Returns (features, epoch, windows,
-        window_edges, n_records, events, plan) — see job.JobResult;
-        ``events`` is the sink's {name: EventLog} for ragged features
-        (None when the job has none, or the sink streams)."""
+        """Drain the pipeline, finalize every window (trailing partial
+        ones included) and the epoch aggregates; idempotent.  Returns
+        (features, epoch, windows, window_edges, n_records, events,
+        plan) — see job.JobResult; ``events`` is the sink's {name:
+        EventLog} for ragged features (None when the job has none, or
+        the sink streams)."""
         if not self._started:
             raise RuntimeError("JobStepper.finish before start()")
         if self._result is not None:
             return self._result
+        while self._inflight:
+            self._drain()
         host_state = {k: v.cpu().numpy() for k, v in self._agg_state.items()}
         for b in self._windowed:
             rows = _finalize_rows(b, host_state, 0, b.n_windows)
@@ -566,8 +812,8 @@ class JobStepper:
             return
         self._closed = True
         first: BaseException | None = None
-        stream = getattr(self, "_stream", None)
-        for release in ((stream.close if stream is not None else None),
+        for release in ((self._stream.close if self._stream is not None
+                         else None),
                         self.source.close, self.sink.close):
             if release is None:
                 continue
@@ -581,13 +827,14 @@ class JobStepper:
 
 def run_job(m: DatasetManifest, p: DepamParams, specs: list[FeatureSpec],
             source: Source, sink: Sink, pl_: ShardPlan, use_kernels: bool,
-            max_steps: int | None, window: Window | None = None,
+            max_steps: int | None, options: ExecOptions | None = None,
+            window: Window | None = None,
             device: torch.device = torch.device("cuda")):
     """Drive the job over plan ``pl_`` to completion; resumable when the
     sink is.  Returns (features, epoch, windows, window_edges,
     n_records, events, plan)."""
     return drive(JobStepper(m, p, specs, source, sink, pl_, use_kernels,
-                            max_steps, window, device=device))
+                            max_steps, options, window, device=device))
 
 
 def drive(stepper: JobStepper):

@@ -483,9 +483,12 @@ SPD_N_DB = int(round((SPD_DB_MAX - SPD_DB_MIN) / SPD_DB_STEP))
 
 def _spd_update(db: torch.Tensor, mask: torch.Tensor) -> dict:
     """Per-record frame-count histogram: (batch, n_frames, n_bins) dB ->
-    {counts: (batch, n_bins, SPD_N_DB) int32}.  One ``bincount`` over
-    the flat ids, offset per record: integer adds give the same bits in
-    any order, so the atomics a GPU bincount uses change nothing."""
+    {counts: (batch, n_bins, SPD_N_DB) int32}.  One ``index_add_`` of
+    integer ones into a histogram of fixed size, over the flat ids offset
+    per record: integer adds give the same counts in any order, so the
+    atomics a GPU index_add uses change nothing.  (``torch.bincount``
+    would read the largest id back to the host on a CUDA tensor, a
+    synchronization in every step.)"""
     batch, _, n_bins = db.shape
     n_ids = n_bins * SPD_N_DB + 1            # the last id drops a frame
     freq = torch.arange(n_bins, device=db.device)
@@ -493,9 +496,12 @@ def _spd_update(db: torch.Tensor, mask: torch.Tensor) -> dict:
     valid = (db >= SPD_DB_MIN) & (db < SPD_DB_MAX) & mask[:, None, None]
     ids = torch.where(valid, freq * SPD_N_DB + dbin, n_ids - 1)
     ids = ids + n_ids * torch.arange(batch, device=db.device)[:, None, None]
-    h = torch.bincount(ids.reshape(-1), minlength=batch * n_ids)
+    ids = ids.reshape(-1)
+    h = torch.zeros(batch * n_ids, dtype=torch.int32, device=db.device)
+    h.index_add_(0, ids, torch.ones((), dtype=torch.int32,
+                                    device=db.device).expand(ids.numel()))
     h = h.reshape(batch, n_ids)[:, :-1].reshape(batch, n_bins, SPD_N_DB)
-    return {"counts": h.to(torch.int32)}
+    return {"counts": h}
 
 
 def _spd_finalize(state: dict[str, np.ndarray]) -> np.ndarray:
@@ -529,9 +535,7 @@ def _extremum_reduction(out_name: str, op: str) -> Reduction:
     sign = np.inf if op == "min" else -np.inf
 
     def update(v, mask):
-        return {op: torch.where(mask[:, None], v,
-                                torch.tensor(float(sign), dtype=v.dtype,
-                                             device=v.device)),
+        return {op: torch.where(mask[:, None], v, float(sign)),
                 "count": mask.to(torch.int32)}
 
     def finalize(state):
@@ -616,7 +620,7 @@ def _impulsive_compute(ctx: FeatureContext):
     s_1, s_2, s_3, s_4 = (torch.einsum("bn,bkn->bk", v, spanf)
                           for v in pows)
     nz = torch.clamp(ns, min=1.0)
-    fs = torch.tensor(np.float32(p.fs), device=dev)
+    fs = ctx.const("impulsive", "fs")                 # f32 scalar tensor
     sel = spectra.db(s_2 / fs, p)                    # dB re 1 uPa^2 s
     x2m = torch.where(span, x2[:, None, :], 0.0)
     peak = spectra.db(torch.amax(x2m, dim=-1), p)     # zero-to-peak
@@ -636,6 +640,7 @@ register(FeatureSpec(
     name="impulsive",
     shape=None,
     compute=_impulsive_compute,
+    setup=lambda m, p: {"fs": np.float32(p.fs)},
     ragged=True,
     columns=IMPULSIVE_COLUMNS,
     doc="Per-event impulsive metrics from the raw waveform (pypam "

@@ -11,6 +11,7 @@
                  .to("/tmp/depam")    # optional: default in-memory
                  .chunk(8)
                  .payload("int16")    # optional: raw-PCM transport
+                 .async_io(depth=2)   # optional: pipelined executor
                  .events(60.0, impulsive=True)  # optional: detection
                  .device("cuda")      # the default; "cpu" opts out
                  .run())
@@ -34,8 +35,8 @@ from repro_torch.core.params import DepamParams
 from repro_torch.device import resolve_device
 from . import engine
 from .features import EPOCH_WINDOW, FeatureSpec, Window, resolve_features
-from .sinks import Sink, as_sink
-from .sources import Source, as_source
+from .sinks import AsyncSink, Sink, as_sink
+from .sources import PrefetchSource, Source, as_source
 
 
 @dataclasses.dataclass
@@ -98,6 +99,7 @@ class SoundscapeJob:
         self._payload_dtype: str | None = None
         self._window: Window = EPOCH_WINDOW
         self._device: str | torch.device = "cuda"
+        self._exec = engine.ExecOptions()
 
     def features(self, *feats: str | FeatureSpec) -> "SoundscapeJob":
         """Select registered feature names and/or inline FeatureSpecs."""
@@ -192,6 +194,28 @@ class SoundscapeJob:
         self._max_steps = max_steps
         return self
 
+    def async_io(self, depth: int = 2, inflight: int = 2,
+                 queue_size: int = 8) -> "SoundscapeJob":
+        """Enable the pipelined executor: overlap host reads, device
+        compute and sink IO.
+
+        ``depth`` plan steps of host read-ahead (host-fed sources are
+        wrapped in a :class:`PrefetchSource`), ``inflight`` device steps
+        dispatched ahead of the sink drain (host<->device copies on
+        their own CUDA streams through pinned buffers), and sink writes
+        and commits moved onto an :class:`AsyncSink` writer bounded at
+        ``queue_size`` steps.  Results are bitwise-identical to the
+        synchronous path: pipelining reorders waiting, not computation.
+        """
+        self._exec = engine.ExecOptions(
+            inflight=inflight, prefetch_depth=depth, queue_size=queue_size)
+        return self
+
+    def sync_io(self) -> "SoundscapeJob":
+        """Back to the fully synchronous executor (the default)."""
+        self._exec = engine.ExecOptions()
+        return self
+
     def device(self, device: str | torch.device) -> "SoundscapeJob":
         """Where the job runs: ``"cuda"`` (the default) or ``"cpu"``."""
         self._device = device
@@ -229,17 +253,23 @@ class SoundscapeJob:
                         f"the reduction output")
 
     def _stepper(self) -> engine.JobStepper:
-        """Validate and build the resumable stepper this configuration
-        describes."""
+        """Validate, wrap source and sink per the executor options, and
+        build the resumable stepper this configuration describes."""
         device = resolve_device(self._device)
         specs = resolve_features(self._features)
         source: Source = as_source(self._source)
         self._validate(specs, source)
         if self._payload_dtype is not None:
             source = source.with_payload(self._payload_dtype)
+        if self._exec.prefetch_depth > 0 and not source.device_synth \
+                and not isinstance(source, PrefetchSource):
+            source = PrefetchSource(source, depth=self._exec.prefetch_depth)
+        sink: Sink = as_sink(self._sink)
+        if self._exec.inflight > 0 and not isinstance(sink, AsyncSink):
+            sink = AsyncSink(sink, queue_size=self._exec.queue_size)
         return engine.JobStepper(
-            self._m, self._p, specs, source, as_sink(self._sink),
-            self._plan(), self._use_kernels, self._max_steps,
+            self._m, self._p, specs, source, sink, self._plan(),
+            self._use_kernels, self._max_steps, self._exec,
             window=self._window, device=device)
 
     def run(self) -> JobResult:

@@ -22,6 +22,10 @@ Contract: ``open`` first, ``write(step=k)`` before ``commit(step=k)``,
 steps ascending, and a commit makes every prior write durable — event
 rows included: the resumable store keeps its own per-log row cursor, so
 a crash between write and commit never duplicates or tears an event.
+Every array the engine hands a sink is the sink's own: nothing else
+writes to it afterwards, so a sink may keep it or queue it.
+:class:`AsyncSink` moves any sink's IO onto a background writer with
+the same ordering.
 ``as_sink`` normalizes what users pass to ``job.to()``: ``None`` ->
 in-memory arrays, a path string or ``FeatureStore`` -> the resumable
 store, a callable -> streaming callback, a ``Sink`` -> itself.
@@ -29,6 +33,8 @@ store, a callable -> streaming callback, a ``Sink`` -> itself.
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from typing import Callable
 
 import numpy as np
@@ -336,6 +342,170 @@ class CallbackSink(Sink):
     def write_events(self, step, indices, values):
         if self.on_events is not None:
             self.on_events(step, indices, values)
+
+
+class AsyncSink(Sink):
+    """Bounded background writer around any sink.
+
+    ``write``/``write_windows``/``write_events``/``commit`` enqueue onto
+    a FIFO processed by one worker thread, so the driver returns at once
+    instead of blocking on sink IO; the bounded queue (``queue_size``
+    steps) applies backpressure when the sink cannot keep up.  The queue
+    is strictly FIFO with one consumer, so the inner sink sees exactly
+    the engine's order: every ``write(step=k)`` lands before
+    ``commit(step=k)``, and a commit runs (and so becomes durable) only
+    after ALL earlier writes landed.  A crash leaves the resumable
+    store's cursor at a step whose data is fully on disk: the crash
+    semantics of the synchronous path, shifted in time.
+
+    A worker exception is kept and re-raised on the *next* driver call
+    (``write``/``commit``/``flush``/``result``/``close``), so a sink
+    failure still aborts the job instead of vanishing on a thread.
+
+    ``open``/``resume_state``/``committed_steps``/``committed_plan``
+    stay synchronous: resume decisions need the inner sink's durable
+    state, not the queue's view of it.
+    """
+
+    def __init__(self, inner: Sink, queue_size: int = 8,
+                 name: str | None = None):
+        self.inner = inner
+        self.resumable = inner.resumable
+        self.wants_commit = inner.wants_commit
+        self._name = name or "AsyncSink"
+        # bound by STEPS: a step enqueues a write plus, for
+        # commit-consuming sinks, a commit
+        items_per_step = 2 if self.wants_commit else 1
+        self._q: queue.Queue = queue.Queue(
+            maxsize=max(1, queue_size) * items_per_step)
+        self._worker: threading.Thread | None = None
+        self._error: BaseException | None = None
+        self._killed = False
+
+    # -- worker ---------------------------------------------------------
+    def _run(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is None:
+                    return
+                if self._killed or self._error is not None:
+                    continue          # drain without executing
+                op, args = item
+                try:
+                    if op == "write":
+                        self.inner.write(*args)
+                    elif op == "windows":
+                        self.inner.write_windows(*args)
+                    elif op == "events":
+                        self.inner.write_events(*args)
+                    else:
+                        self.inner.commit(*args)
+                except BaseException as e:     # noqa: BLE001 - re-raised
+                    self._error = e
+            finally:
+                self._q.task_done()
+
+    def _ensure_worker(self):
+        if self._worker is None or not self._worker.is_alive():
+            self._worker = threading.Thread(
+                target=self._run, name=f"{self._name}-writer", daemon=True)
+            self._worker.start()
+
+    def _raise_pending(self):
+        # STICKY: once the inner sink failed, every later driver call
+        # re-raises and the worker drains without executing.  Clearing
+        # it would let a commit queued behind the failed write reach the
+        # store — a durable cursor past data that never landed.
+        if self._error is not None:
+            raise RuntimeError("AsyncSink worker failed") from self._error
+
+    # -- synchronous control plane --------------------------------------
+    def open(self, m, p, shapes, plan):
+        self.inner.open(m, p, shapes, plan)
+        self._killed = False
+        self._error = None        # a fresh run starts with a clean slate
+        self._ensure_worker()
+
+    def open_windows(self, shapes):
+        self.inner.open_windows(shapes)
+
+    def open_events(self, layouts):
+        self.inner.open_events(layouts)
+
+    def resume_state(self):
+        return self.inner.resume_state()
+
+    def committed_steps(self, plan) -> int:
+        self.flush()
+        return self.inner.committed_steps(plan)
+
+    def committed_plan(self) -> dict | None:
+        self.flush()
+        return self.inner.committed_plan()
+
+    # -- queued data plane ----------------------------------------------
+    def write(self, step, indices, values):
+        self._raise_pending()
+        self._q.put(("write", (step, indices, values)))
+
+    def write_windows(self, name, start, values):
+        # the same FIFO: a window row lands before the commit that makes
+        # its cursor durable
+        self._raise_pending()
+        self._q.put(("windows", (name, start, values)))
+
+    def write_events(self, step, indices, values):
+        # FIFO again: the store's append position at commit(step=k) is
+        # exactly the rows of steps <= k
+        self._raise_pending()
+        self._q.put(("events", (step, indices, values)))
+
+    def commit(self, plan, step, agg, live):
+        self._raise_pending()
+        self._q.put(("commit", (plan, step, agg, live)))
+
+    def flush(self):
+        """Block until every queued write/commit has been applied."""
+        if self._worker is not None:
+            self._q.join()
+        self._raise_pending()
+
+    def result(self):
+        self.flush()
+        return self.inner.result()
+
+    def event_result(self):
+        self.flush()
+        return self.inner.event_result()
+
+    def close(self):
+        """Drain the queue, stop the worker, close the inner sink — then
+        re-raise the sticky worker error.  Cleanup runs to the end even
+        for a failed sink, and the sticky error wins over any secondary
+        error ``inner.close()`` raises."""
+        if self._worker is not None and self._worker.is_alive():
+            self._q.join()
+            self._q.put(None)
+            self._worker.join()
+        self._worker = None
+        try:
+            self.inner.close()
+        finally:
+            self._raise_pending()
+
+    def _abort(self):
+        """Crash simulation (tests): stop the worker WITHOUT draining.
+
+        Queued-but-unprocessed writes/commits are discarded, as a process
+        kill discards them; the durable state is whatever the worker had
+        already applied.
+        """
+        self._killed = True
+        if self._worker is not None and self._worker.is_alive():
+            self._q.put(None)
+            self._worker.join()
+        self._worker = None
 
 
 def as_sink(sink) -> Sink:

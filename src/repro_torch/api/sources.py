@@ -11,12 +11,20 @@ Two modes behind one interface:
     host (any reader callback, or a directory of wav files) and ships
     them to the device.
 
+Host-fed sources expose ``stream(plan, start, stop)``, the per-step
+payload iterator the engine drives.  The base implementation fetches
+inline (the synchronous path); :class:`PrefetchSource` runs the wrapped
+source through :class:`repro_torch.data.loader.SpeculativeLoader`, so
+reads for step k+depth proceed on a host thread pool (with
+over-decomposition and speculative re-execution of stragglers) while
+the device computes step k.
+
 Host-fed sources carry a **payload dtype**: ``"float32"`` (decoded
 waveforms, the default) or ``"int16"`` (raw PCM: half the host->device
 bytes; the per-record float32 decode-scale sidecar from
 :meth:`Source.scales` rides along and the kernels dequantize as they
-load, bitwise-identically).  The pipelined prefetcher comes with a
-later slice.
+load, bitwise-identically).  :class:`PrefetchSource` preserves whatever
+the wrapped source ships.
 
 ``as_source`` normalizes what users pass to ``job.source()``: ``None``
 -> synthesis, a callable -> ``ReaderSource``, a path string ->
@@ -32,7 +40,8 @@ import torch
 
 from repro_torch.core.manifest import DatasetManifest, ShardPlan
 from repro_torch.core.params import DepamParams, PCM_DECODE_SCALE
-from repro_torch.data.wavio import BlockReader
+from repro_torch.data.loader import SpeculativeLoader
+from repro_torch.data.wavio import BlockReader, WavRecordReader
 
 
 def _record_seed(seed: int, idx: int) -> int:
@@ -92,7 +101,12 @@ class Source:
     def fetch(self, indices: np.ndarray) -> np.ndarray:
         """Global record indices -> waveforms of shape
         ``indices.shape + (record_size,)`` (zeros for padding slots), in
-        ``payload_dtype``.  Pure per index: any index shape, any order."""
+        ``payload_dtype``.
+
+        The synchronous engine passes ``(n_shards, chunk)`` arrays, but
+        the pipelined path (:class:`PrefetchSource`) over-decomposes each
+        step and calls ``fetch`` with flat 1-D sub-slices, concurrently
+        from a thread pool: pure per index and thread-safe."""
         raise NotImplementedError
 
     def scales(self, indices: np.ndarray) -> np.ndarray:
@@ -183,21 +197,25 @@ class WavSource(Source):
     (uniform miniatures from ``data.wavio.write_dataset`` or a real
     corpus scanned by ``data.wavio.scan_dataset``).
 
-    Reads go through the block-coalesced
+    By default reads go through the block-coalesced
     :class:`~repro_torch.data.wavio.BlockReader` (indices grouped by
-    file, contiguous runs merged into single reads, handles cached in a
-    bounded LRU), which is bitwise-identical to the per-record
-    :class:`~repro_torch.data.wavio.WavRecordReader` the tests hold it
-    against.  ``calibration`` applies a per-file sensitivity gain.
+    file, contiguous runs merged into single reads, up to
+    ``max_open_files`` handles cached in a thread-safe LRU), which is
+    bitwise-identical to the per-record path (``coalesced=False``,
+    :class:`~repro_torch.data.wavio.WavRecordReader`, the debugging
+    oracle).  ``calibration`` applies a per-file sensitivity gain.
 
     ``payload_dtype="int16"`` (or ``.payload("int16")`` on the job)
     ships raw PCM straight from ``readframes``, with the calibration in
     the :meth:`scales` sidecar instead of a host multiply.
     """
 
-    def __init__(self, root: str, calibration=None,
+    def __init__(self, root: str, coalesced: bool = True,
+                 max_open_files: int = 8, calibration=None,
                  payload_dtype: str = "float32"):
         self.root = root
+        self.coalesced = coalesced
+        self.max_open_files = max_open_files
         self.calibration = calibration
         self.payload_dtype = payload_dtype
         self._reader = None
@@ -213,9 +231,14 @@ class WavSource(Source):
         return new
 
     def bind(self, m: DatasetManifest, p: DepamParams) -> "WavSource":
-        self._reader = BlockReader(self.root, m,
-                                   calibration=self.calibration,
-                                   raw=self.payload_dtype == "int16")
+        raw = self.payload_dtype == "int16"
+        if self.coalesced:
+            self._reader = BlockReader(
+                self.root, m, max_open_files=self.max_open_files,
+                calibration=self.calibration, raw=raw)
+        else:
+            self._reader = WavRecordReader(
+                self.root, m, calibration=self.calibration, raw=raw)
         return self
 
     def fetch(self, indices: np.ndarray) -> np.ndarray:
@@ -233,6 +256,95 @@ class WavSource(Source):
     def close(self) -> None:
         if self._reader is not None and hasattr(self._reader, "close"):
             self._reader.close()
+
+
+class PrefetchSource(Source):
+    """Drive any host-fed source through a
+    :class:`~repro_torch.data.loader.SpeculativeLoader`.
+
+    Wraps ``inner`` so that ``stream`` keeps ``depth`` plan steps of
+    reads in flight on a host thread pool of ``workers`` threads, each
+    step over-decomposed into ``overdecompose`` read tasks with
+    speculative re-execution of stragglers (first completion wins).
+    Reads are pure functions of the record index, so the streamed
+    payloads are bitwise-identical to ``inner.fetch`` — prefetching
+    changes *when* bytes arrive, never *what* arrives.  ``last_stats``
+    holds the loader's task statistics after a stream ends.
+
+    ``SoundscapeJob.async_io(depth=...)`` applies this wrapper; wrap
+    explicitly to tune workers/over-decomposition or to reuse one
+    wrapped source across jobs.
+    """
+
+    def __init__(self, inner: "Source | Callable | str", depth: int = 2,
+                 workers: int = 4, overdecompose: int = 4,
+                 speculate_factor: float = 4.0,
+                 min_speculate_sec: float = 0.05):
+        inner = as_source(inner)
+        if inner.device_synth:
+            raise ValueError(
+                "PrefetchSource wraps host-fed sources; device-"
+                "synthesized sources have no host IO to prefetch")
+        self.inner = inner
+        self.depth = max(1, depth)
+        self.workers = workers
+        self.overdecompose = overdecompose
+        self.speculate_factor = speculate_factor
+        self.min_speculate_sec = min_speculate_sec
+        self.last_stats: dict | None = None
+        self._manifest: DatasetManifest | None = None
+
+    @property
+    def payload_dtype(self) -> str:
+        """Prefetching never changes the bytes: the wrapped source's
+        transport dtype (and its decode-scale sidecar) pass through."""
+        return self.inner.payload_dtype
+
+    def with_payload(self, dtype: str) -> "PrefetchSource":
+        if dtype == self.payload_dtype:
+            return self
+        new = copy.copy(self)
+        new.inner = self.inner.with_payload(dtype)
+        return new
+
+    def bind(self, m: DatasetManifest, p: DepamParams) -> "PrefetchSource":
+        self.inner = self.inner.bind(m, p)
+        self._manifest = m
+        return self
+
+    def fetch(self, indices: np.ndarray) -> np.ndarray:
+        return self.inner.fetch(indices)
+
+    def scales(self, indices: np.ndarray) -> np.ndarray:
+        return self.inner.scales(indices)
+
+    def close(self) -> None:
+        self.inner.close()
+
+    def stream(self, plan: ShardPlan, start: int,
+               stop: int) -> Iterator[np.ndarray]:
+        # read tasks split along the manifest's file boundaries (when
+        # bound), so each task coalesces into sequential IO on one
+        # file; a partitioned plan's span offsets join the cut set, so
+        # no read task straddles two worker slices
+        boundaries = None if self._manifest is None \
+            else self._manifest.file_offsets
+        offsets = getattr(plan, "offsets", None)
+        if boundaries is not None and offsets is not None:
+            boundaries = np.union1d(boundaries,
+                                    np.asarray(offsets, np.int64))
+        loader = SpeculativeLoader(
+            self.inner.fetch, plan, workers=self.workers,
+            overdecompose=self.overdecompose, depth=self.depth,
+            speculate_factor=self.speculate_factor,
+            min_speculate_sec=self.min_speculate_sec,
+            boundaries=boundaries)
+        try:
+            for _step, payload, _mask in loader.iter_steps(start, stop):
+                yield payload
+        finally:
+            self.last_stats = loader.stats()
+            loader.close()
 
 
 def as_source(src) -> Source:

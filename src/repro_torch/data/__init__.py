@@ -1,1 +1,2 @@
-"""Wav dataset IO (``wavio``), a copy of the reference's."""
+"""Wav dataset IO (``wavio``) and the prefetching loader (``loader``),
+copies of the reference's."""

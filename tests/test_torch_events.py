@@ -510,6 +510,46 @@ def test_impulsive_matches_float64_oracle(kernels):
                                        atol=2.0 / P0.fs)
 
 
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the hand-written kernels have no "
+                    "CPU or interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_impulsive_on_card_under_high_matmul_precision(cuda):
+    """The impulsive metrics' torch einsums on the card, with the
+    process-wide float32 matmul precision set to "high" (TF32 allowed),
+    still within the float64 oracle's tolerances."""
+    recs = make_pulses(M0, P0)
+
+    def reader(idx):
+        flat = idx.reshape(-1) % M0.n_records
+        return recs[flat].reshape(*idx.shape, -1)
+
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        out = (api.job(M0, P0).features("spl").chunk(4).source(reader)
+               .device(cuda)
+               .events(-5.0, hysteresis_db=2.0, capacity=8, impulsive=True)
+               .run())
+    finally:
+        torch.set_float32_matmul_precision(before)
+    ev, imp = out.events["events"], out.events["impulsive"]
+    assert ev.counts.tolist() == (1 + np.arange(M0.n_records) % 3).tolist()
+    for i in range(M0.n_records):
+        for row, got in zip(ev.record(i), imp.record(i)):
+            want = impulsive_oracle(recs[i], int(row[0]), int(row[1]), P0)
+            np.testing.assert_allclose(got[:2], want[:2], rtol=0, atol=1e-3)
+            np.testing.assert_allclose(got[2], want[2], rtol=1e-3,
+                                       atol=1e-3)
+            np.testing.assert_allclose(got[3], want[3], rtol=0,
+                                       atol=2.0 / P0.fs)
+
+
 # -- durability of the event log --------------------------------------------
 
 EV = dict(threshold_db=-25.5, hysteresis_db=0.5, capacity=4)

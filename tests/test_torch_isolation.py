@@ -33,6 +33,7 @@ def test_import_leaves_out_jax_and_reference():
         "import repro_torch.core.pipeline, repro_torch.compat\n"
         "import repro_torch.kernels.events, repro_torch.data.wavio\n"
         "import repro_torch.meta, repro_torch.faults.errors\n"
+        "import repro_torch.data.loader, repro_torch.launch.depam_run\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -50,6 +51,8 @@ def test_source_scan_finds_no_jax_or_reference_import():
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {"src/repro_torch/kernels/events.py",
             "src/repro_torch/data/wavio.py",
+            "src/repro_torch/data/loader.py",
+            "src/repro_torch/launch/depam_run.py",
             "src/repro_torch/meta/instrument.py",
             "src/repro_torch/meta/timestamps.py"} <= names
     hits = [f"{f}: {m.group(0).strip()}" for f in files
