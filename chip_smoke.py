@@ -424,10 +424,11 @@ def main() -> int:
     from repro_torch.core import spectra
     from repro_torch.core.params import (PARAM_SET_1, PARAM_SET_2,
                                          PCM_DECODE_SCALE, DepamParams)
+    from repro_torch.core.manifest import DatasetManifest
     from repro_torch.core.store import FeatureStore
     from repro_torch.core.tol import band_matrix
     from repro_torch.core.windows import make_window
-    from repro_torch.data.wavio import BlockReader
+    from repro_torch.data.wavio import BlockReader, write_dataset
     from repro_torch.kernels import (_build, ct_rfft, events, framepsd, ops,
                                      tol as tolk, welch as welchk)
 
@@ -444,6 +445,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
+    phase_t = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - phase_t[0]:.1f} s")
+        phase_t[0] = now
+
     t0 = time.perf_counter()
     lib = _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s "
@@ -473,6 +481,8 @@ def main() -> int:
 
     def decoded(pcm, scales, idx):
         return pcm[idx].astype(np.float32) * scales[idx][:, None]
+
+    phase_done("1 (build, data)")
 
     # -- phase 2: each kernel against its plain version ---------------------
     cycles_per_ms = spin_rate()
@@ -721,6 +731,8 @@ def main() -> int:
                   f"plain={p_paced}")
     del traces
 
+    phase_done("2")
+
     # -- phase 2b: K1, K2 and K5 at every shape the CPU tests give them ----
     rng = np.random.default_rng(SEED)
 
@@ -837,6 +849,8 @@ def main() -> int:
           f"{chunk}; min_len 1/3, capacity 16/3) == plain version bitwise, "
           f"{overflowed} records over capacity, in "
           f"{time.perf_counter() - t0:.1f} s")
+
+    phase_done("2b")
 
     # -- phase 3: the main path, under both executors ------------------------
     counters = ops.launch_counters()
@@ -1025,9 +1039,11 @@ def main() -> int:
 
     expected = {"set1": {"welch_psd", "tol_levels"},
                 "set2": {"ct_frame_psd", "welch_mean", "tol_levels"}}
+    main_results = {}
     for name in ("set1", "set2"):
         p, m, pcm, scales = sets[name]
         res, _ = drive("main", name, build, expected[name], all_equal)
+        main_results[name] = res
         n_bins = p.n_bins
         check(res["welch"].shape == (m.n_records, n_bins)
               and res["ltsa"].shape == (3, n_bins)
@@ -1049,6 +1065,8 @@ def main() -> int:
             print(f"{name} record {i} vs scipy.signal.welch (float64): max "
                   f"rel err {err:.3e} (tol {tol:g})")
             check(err < tol, f"{name} record {i} disagrees with scipy")
+
+    phase_done("3")
 
     # -- phase 4: the detection path, read from the wav files ----------------
     det_expected = {"set1": {"frame_psd", "detect_events"},
@@ -1095,6 +1113,8 @@ def main() -> int:
               and bool(np.isfinite(res["spd"]).all()),
               f"{name} detection output shapes")
 
+    phase_done("4")
+
     # -- phase 5: the impulsive einsums under matmul precision "high" --------
     # TF32 is a process-wide setting the port does not pin for its own
     # torch matmuls; hold the set-1 detection job's impulsive metrics, run
@@ -1131,6 +1151,8 @@ def main() -> int:
               f"float64 oracle")
     reader.close()
     del res_hi
+
+    phase_done("5")
 
     # -- phase 6: one profiled window of async steps -------------------------
     from torch.autograd import DeviceType
@@ -1181,6 +1203,8 @@ def main() -> int:
     else:
         print("profile set1 detection float32 async: the profiler recorded "
               "no device activity; device busy share not measured")
+
+    phase_done("6")
 
     # -- phase 7: the CLI on the card -----------------------------------------
     fields = {"records", "seconds", "gb", "gb_per_min", "records_per_sec",
@@ -1248,7 +1272,228 @@ def main() -> int:
             print(f"CLI {name} int16 pipelined rerun: {notice!r}; arrays "
                   f"unchanged")
     cli_tmp.cleanup()
+    phase_done("7")
+
+    # -- phase 8: sharded execution over repeated executors ------------------
+    from repro_torch.launch.mesh import device_mesh
+
+    def result_of(out):
+        return api.JobResult(features=out[0], epoch=out[1], windows=out[2],
+                             window_edges=out[3], n_records=out[4],
+                             events=out[5], plan=out[6], quarantine=out[7])
+
+    def stepped(j):
+        """Drive job ``j`` through its stepper, every step after the
+        first under ``set_sync_debug_mode("error")``; returns the result
+        and the wall seconds."""
+        st = j._stepper()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            st.start()
+            st.step_once()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                while st.step_once():
+                    pass
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            out = st.finish()
+        finally:
+            st.close()
+        torch.cuda.synchronize()
+        return result_of(out), time.perf_counter() - t0
+
+    # the five-file corpus at the full 60 s records: the partition cuts
+    # on file boundaries
+    p1 = PARAM_SET_1
+    m5 = DatasetManifest.from_files((3, 6, 3, 4, 4),
+                                    record_size=p1.record_size, fs=p1.fs,
+                                    seed=SEED)
+    t0 = time.perf_counter()
+    root5 = str(Path(wav_tmp.name) / "set1x5")
+    write_dataset(root5, m5)
+    print(f"set1x5: {m5.n_records} records in {m5.n_files} wav files "
+          f"written in {time.perf_counter() - t0:.2f} s")
+
+    def five(name, payload):
+        return (api.job(m5, p1).features(*feats).window(records=15)
+                .source(TimedWavSource(root5)).payload(payload)
+                .device("cuda"))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        unsharded5 = five("set1x5", "float32").run()
+
+    def close_main(got, want, rel, db):
+        err = {}
+        for k in ("welch", "ltsa", "mean_welch"):
+            g, w = (np.asarray(x, np.float64) for x in (got[k], want[k]))
+            err[k] = float(np.max(np.abs(g - w) / np.abs(w)))
+        for k in ("spl", "tol"):
+            err[k] = float(np.max(np.abs(np.asarray(got[k], np.float64)
+                                         - np.asarray(want[k]))))
+        ok = all(err[k] < (rel if k in ("welch", "ltsa", "mean_welch")
+                           else db) for k in err)
+        return ok, err
+
+    def close_detection(got, want, rel, db):
+        err = {"percentiles": float(np.max(np.abs(
+            got["percentiles"].astype(np.float64) - want["percentiles"]))),
+            "spd": float(np.max(np.abs(got["spd"] - want["spd"])))}
+        ge, we = got.events["events"], want.events["events"]
+        gi, wi = got.events["impulsive"], want.events["impulsive"]
+        same_rows = (np.array_equal(ge.counts, we.counts)
+                     and np.array_equal(ge.rows[:, :3], we.rows[:, :3])
+                     and np.array_equal(gi.counts, wi.counts))
+        if same_rows:
+            err["peak_db"] = float(np.max(np.abs(ge.rows[:, 3]
+                                                 - we.rows[:, 3])))
+            d = np.abs(gi.rows.astype(np.float64) - wi.rows)
+            err["sel_peak_db"] = float(d[:, :2].max())
+            err["kurtosis"] = float(np.max(d[:, 2] / np.maximum(
+                np.abs(wi.rows[:, 2]), 1.0)))
+            err["rise_s"] = float(d[:, 3].max())
+        ok = (same_rows and err["percentiles"] < db and err["spd"] < 1e-3
+              and err["peak_db"] < db and err["sel_peak_db"] < db
+              and err["kurtosis"] < 1e-3
+              and err["rise_s"] <= 2.0 / sets["set1"][0].fs)
+        return ok, err
+
+    sets["set1x5"] = (p1, m5, None, None)
+    sharded_launches = {c: 0 for c in counters}
+    shard_jobs = (
+        ("set1 main", "set1", build, expected["set1"], all_equal,
+         main_results["set1"], close_main, (1e-4, 1e-3)),
+        ("set1x5 main", "set1x5", five, expected["set1"], all_equal,
+         unsharded5, close_main, (1e-4, 1e-3)),
+        ("set1 detection", "set1", detect, det_expected["set1"],
+         lambda ra, rb: all_equal(ra, rb) and logs_equal(ra, rb),
+         det_results["set1"], close_detection, (5e-4, 1e-3)),
+        ("set2 detection", "set2", detect, det_expected["set2"],
+         lambda ra, rb: all_equal(ra, rb) and logs_equal(ra, rb),
+         det_results["set2"], close_detection, (1e-3, 5e-3)))
+    for (label, name, make, expect, equal, unsharded, close,
+         tols) in shard_jobs:
+        p, m = sets[name][:2]
+        audio_s = m.n_records * p.record_size_sec
+        results, walls = {}, {}
+
+        def sharded_job(payload, mode, d, store=None, limit=None):
+            j = make(name, payload).shards(4).chunk(2)
+            if d is not None:
+                j = j.on(device_mesh([dev] * d))
+            j = mode(j)
+            if store is not None:
+                j = j.to(store).limit(limit)
+            return j
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            for payload in ("float32", "int16"):
+                for ex, mode in executors.items():
+                    for d in (None, 1, 2, 4):
+                        counted = (payload, ex, d) == ("float32", "sync", 4)
+                        for c in counters.values():
+                            c.reset()
+                        res, wall = stepped(sharded_job(payload, mode, d))
+                        seen = {c: counters[c].count for c in counters}
+                        if counted:
+                            for c, n in seen.items():
+                                sharded_launches[c] += n
+                                check((n > 0) == (c in expect),
+                                      f"sharded {label} launched {c} {n} "
+                                      f"times")
+                            print(f"sharded {label} float32 sync D=4 "
+                                  f"launches: {seen}")
+                        else:
+                            check(all(seen[c] > 0 for c in expect),
+                                  f"sharded {label} {payload} {ex} D={d} "
+                                  f"missed a kernel")
+                        results[(payload, ex, d)] = res
+                        walls[(payload, ex, d)] = wall
+                    with tempfile.TemporaryDirectory(
+                            dir=ROOT / "build") as sd:
+                        stepped(sharded_job(payload, mode, 4, sd, 2))
+                        j = sharded_job(payload, mode, 2, sd)
+                        check(j.resume_step() == 2,
+                              f"sharded {label} store did not commit 2 "
+                              f"steps")
+                        res, _ = stepped(j)
+                        results[(payload, ex, "D=4 -> D=2 resume")] = res
+        base = results[("float32", "sync", None)]
+        for key, res in results.items():
+            check(equal(base, res),
+                  f"sharded {label} {key} != no-mesh float32 sync bitwise")
+        ok, err = close(base, unsharded, *tols)
+        print(f"sharded {label}: no mesh, D=1, 2, 4 and D=4 -> D=2 resume "
+              f"x float32/int16 x sync/async: {len(results)} runs bitwise "
+              f"equal, event logs included, steady-state steps under "
+              f"set_sync_debug_mode('error'); against the unsharded job "
+              f"{json.dumps(err)} (tol {tols[0]:g} rel, {tols[1]:g} dB)")
+        check(ok, f"sharded {label} off the unsharded job: {err}")
+        for d in (None, 1, 2, 4):
+            where = "no mesh" if d is None else f"D={d}"
+            for payload in ("float32", "int16"):
+                for ex in executors:
+                    w = walls[(payload, ex, d)]
+                    print(f"sharded {label} {where} "
+                          f"{payload} {ex}: {m.n_records} records in "
+                          f"{w:.3f} s, {m.n_records / w:.2f} records/s, "
+                          f"{audio_s / w:.1f} x realtime ({smi})")
+    del sets["set1x5"]
+    phase_done("8")
+
+    # -- phase 9: the fault layer on the card -------------------------------
+    import importlib.util
+    from repro_torch.faults import FaultPlan
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_chaos_smoke", ROOT / "scripts" / "torch_chaos_smoke.py")
+    chaos = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chaos)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        root_c = str(Path(d) / "wavs")
+        write_dataset(root_c, chaos.M)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            fired = chaos.run_matrix(chaos.M, chaos.P, root_c, d, "cuda", 7,
+                                     log=lambda s: print(f"chaos {s}"))
+    print(f"chaos matrix on the card: {len(fired)} configurations, "
+          f"{sum(fired.values())} injected firings healed bitwise")
+
+    p, m = sets["set1"][:2]
+    n_steps = -(-m.n_records // 8)
+    plan = FaultPlan.scheduled(seed=7, n_records=m.n_records,
+                               n_steps=n_steps, transient_reads=2,
+                               sink_writes=1, transient_times=2)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        healed = (build("set1", "float32").to(d).inject(plan)
+                  .retry(attempts=3, base_delay=0.0, max_delay=0.0,
+                         jitter=0.0).run())
+        check(plan.stats()["firings"] > 0, "45-min healed job never fired")
+        check(all_equal(healed, main_results["set1"]),
+              "45-min healed job != fault-free run bitwise")
+    print(f"healed set1 main on the 45-min file: {plan.stats()} == "
+          f"fault-free bitwise")
+
+    walls = {"plain": [], "retry": []}
+    for _ in range(3):
+        for kind in walls:
+            j = build("set1", "float32")
+            j = j.retry() if kind == "retry" else j
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            j.run()
+            torch.cuda.synchronize()
+            walls[kind].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    print(f"fault-free cost of .retry() on set1 main float32 sync "
+          f"({smi}): {med['plain']:.4f} s without, {med['retry']:.4f} "
+          f"s with ({med['retry'] / med['plain'] - 1:+.2%}); walls "
+          f"{json.dumps(walls)}; not gated")
     wav_tmp.cleanup()
+    phase_done("9")
 
     p, m = sets["set1"][:2]
     torch.cuda.synchronize()
@@ -1267,6 +1512,7 @@ def main() -> int:
 
     for r in report:
         r["launches"] = launches[r["name"]]
+        r["sharded_launches"] = sharded_launches[r["name"]]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

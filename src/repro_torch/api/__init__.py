@@ -21,6 +21,12 @@ copies on their own CUDA streams through pinned buffers, up to
 ``inflight`` steps dispatched ahead, and sink IO on an
 :class:`AsyncSink` background writer — with bitwise-identical results.
 
+``.shards(L)`` fixes a file-aligned partition of L logical slices and
+``.on(mesh)`` lays it over the executors of a host mesh
+(``repro_torch.launch.mesh``), with the same bits at every executor
+count dividing L.  ``.retry()``, ``.tolerate(bad_records=N)`` and
+``.inject(FaultPlan)`` add the fault layer (``repro_torch.faults``).
+
 ::
 
     from repro_torch import api
@@ -48,6 +54,7 @@ from repro_torch.meta import (Instrument, TimestampParseError, format_utc,
 from .sinks import (AsyncSink, CallbackSink, EventLog, MemorySink, Sink,
                     StoreSink, as_sink)
 from .job import JobResult, SoundscapeJob, job
+from repro_torch.faults import FaultPlan, FaultSpec, RetryPolicy
 
 __all__ = [
     "ExecOptions",
@@ -64,4 +71,5 @@ __all__ = [
     "Instrument", "TimestampParseError", "format_utc",
     "parse_timestamp", "timestamps_for",
     "SoundscapeJob", "JobResult", "job",
+    "FaultPlan", "FaultSpec", "RetryPolicy",
 ]

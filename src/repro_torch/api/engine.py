@@ -45,6 +45,12 @@ host waits, never what the device computes:
 device the same queue runs over plain tensors: there are no streams or
 pinned buffers to use.  Sync and async results are bitwise-equal
 (``tests/test_torch_async.py``).
+
+Under a mesh the step runs on several executors (see
+:class:`JobStepper`); the step computes each logical shard in its own
+calls and the carry merges per-shard partials in shard order, so every
+executor count dividing the plan's shard count gives the same bits
+(``tests/test_torch_partition.py``).
 """
 from __future__ import annotations
 
@@ -135,7 +141,7 @@ def compile_step(specs: tuple[FeatureSpec, ...], m: DatasetManifest,
             out[s.name] = torch.where(fmask, val, float(s.fill))
         return out
 
-    def step(payload, mask, scales=None):
+    def shard_step(payload, mask, scales):
         if device_synth:
             idx = np.asarray(payload)
             records = torch.stack([synth_record(int(i), m, device)
@@ -149,7 +155,38 @@ def compile_step(specs: tuple[FeatureSpec, ...], m: DatasetManifest,
             scales=None if scales is None else scales.reshape(-1))
         return features_out(ctx, lead, mask)
 
+    def step(payload, mask, scales=None):
+        # one call per logical shard row: no op ever sees a row count
+        # that depends on how many executors share the step, so every
+        # executor count dividing n_shards gives the same bits
+        n = mask.shape[0]
+        if n == 1:
+            return shard_step(payload, mask, scales)
+        return _cat_outputs([
+            shard_step(payload[s:s + 1], mask[s:s + 1],
+                       None if scales is None else scales[s:s + 1])
+            for s in range(n)], device)
+
     return step
+
+
+def _cat_outputs(parts: list[dict], device: torch.device) -> dict:
+    """Concatenate step outputs (``{name: tensor}`` or ``{name:
+    {"counts", "rows"}}``) along the shard axis, in order, onto
+    ``device``.  A copy from another device is ordered against both
+    devices' current streams by events inside ``Tensor.to``: nothing
+    waits on the host."""
+    def cat(ts):
+        ts = [t.to(device, non_blocking=True) for t in ts]
+        return ts[0] if len(ts) == 1 else torch.cat(ts, dim=0)
+
+    out = {}
+    for name, v in parts[0].items():
+        if isinstance(v, dict):
+            out[name] = {k: cat([p_[name][k] for p_ in parts]) for k in v}
+        else:
+            out[name] = cat([p_[name] for p_ in parts])
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,10 +241,6 @@ def resolve_bindings(specs, m: DatasetManifest, p: DepamParams,
                 feature=s.name, red=red, wkey=win.key,
                 n_windows=win.n_windows(m), fields=tuple(red.init(m, p))))
     return tuple(bindings), windows
-
-
-_IDENTITY = {"sum": 0.0, "ksum": 0.0, "min": float("inf"),
-             "max": -float("inf")}
 
 
 def _window_rows(wids: dict[str, np.ndarray]
@@ -525,12 +558,35 @@ class JobStepper:
     ``close()`` releases source and sink and must run even when another
     method raised.
 
+    Under a mesh (``mesh``/``data_axes``, see ``launch.mesh``) the step
+    runs on ``D`` executors, one ``torch.device`` each (repeats
+    allowed), each owning ``n_shards / D`` consecutive shard rows:
+
+      1. placement — each executor receives only its rows, through its
+         own pinned staging slots and copy stream;
+      2. compute — the step runs on each executor over its own rows, one
+         call per logical shard;
+      3. merge — the outputs are concatenated in shard order onto the
+         first executor's device, ordered by stream events;
+      4. reduction — the carry, which lives on the first executor,
+         merges the per-shard partials in ascending shard order.
+
+    The shard count and the merge order are fixed by the plan, never by
+    ``D``, so every ``D`` dividing ``n_shards`` gives the same bits, and
+    a store committed at one ``D`` resumes at another.
+
+    ``quarantine`` (``faults.Quarantine``, shared with the
+    ``ResilientSource`` that fills it) is the job's bad-record set:
+    quarantined records are masked out of the step after their payload
+    is fetched, and the set rides every commit.  None is strict mode.
+
     ``host_seconds`` accumulates the driver thread's wall time per phase
     of a step: ``fetch`` (waiting for the source's payload), ``h2d``
     (staging and enqueueing the host->device copies), ``dispatch``
-    (enqueueing the step, the carry update and the device->host copies),
-    ``d2h_wait`` (waiting for a drained step's copies) and ``sink``
-    (compaction and the sink calls; with an AsyncSink, the enqueue).
+    (enqueueing the step, the merge, the carry update and the
+    device->host copies), ``d2h_wait`` (waiting for a drained step's
+    copies) and ``sink`` (compaction and the sink calls; with an
+    AsyncSink, the enqueue).
     """
 
     def __init__(self, m: DatasetManifest, p: DepamParams,
@@ -540,7 +596,9 @@ class JobStepper:
                  options: ExecOptions | None = None,
                  window: Window | None = None,
                  compiler: Compiler | None = None,
-                 device: torch.device = torch.device("cuda")):
+                 device: torch.device = torch.device("cuda"),
+                 mesh=None, data_axes: tuple[str, ...] = ("data",),
+                 quarantine=None):
         self.m = m
         self.p = p
         self.specs = tuple(specs)
@@ -552,7 +610,13 @@ class JobStepper:
         self.options = options or ExecOptions()
         self.window = window
         self.compiler = compiler or DEFAULT_COMPILER
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        self.executors = (torch.device(device),) if mesh is None else \
+            partition_lib.shard_sharding(mesh, self.data_axes)
+        # the carry and the merged outputs live on the first executor
+        self.device = self.executors[0]
+        self.quarantine = quarantine
         self.host_seconds = dict.fromkeys(
             ("fetch", "h2d", "dispatch", "d2h_wait", "sink"), 0.0)
         self._started = False
@@ -566,11 +630,21 @@ class JobStepper:
     def start(self) -> "JobStepper":
         """Bind, build, open the sink, restore committed state.  A
         committed plan whose geometry differs from this job's wins, so a
-        resume replays the exact logical layout it was written under."""
+        resume replays the exact logical layout it was written under,
+        over however many executors this job has."""
         committed = self.sink.committed_plan()
         if committed is not None:
             self.pl = partition_lib.adopt_plan(self.pl, committed)
         m, p, pl_ = self.m, self.p, self.pl
+        n_dev = len(self.executors)
+        if n_dev > pl_.n_shards or pl_.n_shards % n_dev:
+            raise ValueError(
+                f"plan has {pl_.n_shards} logical shard(s), which cannot "
+                f"be laid out over {n_dev} data-parallel executor(s) "
+                f"(mesh {self.mesh.shape}, data axes {self.data_axes}) "
+                f"— the executor count must divide the shard count; "
+                f"pick .shards(L) with L % executors == 0, or build a "
+                f"smaller mesh")
         self.source = source = self.source.bind(m, p)
         self._shapes = {s.name: tuple(s.shape(m, p)) for s in self.specs
                         if s.shape is not None}
@@ -585,9 +659,13 @@ class JobStepper:
 
         self._raw = not source.device_synth \
             and source.payload_dtype == "int16"
-        self._step_fn = self.compiler.step(
-            self.specs, m, p, self.use_kernels, source.device_synth,
-            source.payload_dtype, self.device)
+        step_fns = {}
+        for dev in self.executors:
+            if dev not in step_fns:
+                step_fns[dev] = self.compiler.step(
+                    self.specs, m, p, self.use_kernels,
+                    source.device_synth, source.payload_dtype, dev)
+        self._step_fns = [step_fns[dev] for dev in self.executors]
         self._agg_fn = self.compiler.reduce(bindings)
 
         self.sink.open(m, p, self._shapes, pl_)
@@ -603,14 +681,22 @@ class JobStepper:
                 for name, s in self._ragged.items()})
         start_step, resumed = self.sink.resume_state()
         if resumed is not None:
+            # the quarantine set rides the commit as an opaque carry key:
+            # strip it before the strict key match and restore it into
+            # this run's set, so resumed masking (and the spent budget)
+            # equals the uninterrupted run's
             prev_agg, prev_live = resumed
             q = prev_agg.pop("__quarantine__", None)
             if q is not None and np.asarray(q).size:
-                raise ValueError(
-                    f"cannot resume: the committed cursor carries "
-                    f"{np.asarray(q).size} quarantined record(s), and "
-                    f"bad-record tolerance is not ported yet; use a "
-                    f"fresh store directory")
+                if self.quarantine is None:
+                    raise ValueError(
+                        f"cannot resume: the committed cursor carries "
+                        f"{np.asarray(q).size} quarantined record(s) but "
+                        f"this job does not tolerate bad records; re-run "
+                        f"with .tolerate(bad_records="
+                        f"{np.asarray(q).size}) or more, or use a fresh "
+                        f"store directory")
+                self.quarantine.seed(q)
             resumed = (prev_agg, prev_live)
         self._agg_state = _init_reduce_state(bindings, resumed, self.device)
 
@@ -626,7 +712,8 @@ class JobStepper:
                                         start_cursor)
             if start_step > 0 else 0
             for b in self._windowed}
-        self._h2d = _HostToDevice(self.device, self.options.inflight + 1)
+        self._h2d = [_HostToDevice(dev, self.options.inflight + 1)
+                     for dev in self.executors]
         self._d2h = _DeviceToHost(self.device)
         self._stream = None if source.device_synth \
             else source.stream(pl_, start_step, self._n_steps)
@@ -638,29 +725,31 @@ class JobStepper:
         return self._started and (self._result is not None
                                   or self._step >= self._n_steps)
 
-    def _host_arrays(self, idx: np.ndarray, mask: np.ndarray,
-                     rows: np.ndarray) -> dict:
-        """The step's host arrays bound for the device: mask, window row
-        indices and, for host-fed sources, the payload (+ the int16
-        path's decode scales)."""
-        arrays = {"mask": mask, "rows": rows}
-        if self.source.device_synth:
-            return arrays
-        t0 = time.perf_counter()
-        payload = np.asarray(next(self._stream))
-        self.host_seconds["fetch"] += time.perf_counter() - t0
-        if self._raw:
-            if payload.dtype != np.int16:
-                raise TypeError(
-                    f"int16 payload path got {payload.dtype} from "
-                    f"{type(self.source).__name__}.stream — the "
-                    f"source's payload_dtype promises raw '<i2' PCM")
-            arrays["scales"] = np.asarray(self.source.scales(idx),
-                                          np.float32)
-        else:
-            payload = payload.astype(np.float32, copy=False)
-        arrays["payload"] = payload
-        return arrays
+    def _fetch(self, step: int, idx: np.ndarray) -> tuple:
+        """The step's host inputs: payload and int16 decode scales (None
+        for device synthesis) and the live mask.  The payload is fetched
+        BEFORE the mask is frozen: a tolerant source may quarantine
+        records of this very step while reading them, and a quarantined
+        record is masked out of every reduction (its per-record rows are
+        never written)."""
+        payload = scales = None
+        if not self.source.device_synth:
+            t0 = time.perf_counter()
+            payload = np.asarray(next(self._stream))
+            self.host_seconds["fetch"] += time.perf_counter() - t0
+            if self._raw:
+                if payload.dtype != np.int16:
+                    raise TypeError(
+                        f"int16 payload path got {payload.dtype} from "
+                        f"{type(self.source).__name__}.stream — the "
+                        f"source's payload_dtype promises raw '<i2' PCM")
+                scales = np.asarray(self.source.scales(idx), np.float32)
+            else:
+                payload = payload.astype(np.float32, copy=False)
+        mask = self.pl.step_mask(step)
+        if self.quarantine is not None and len(self.quarantine):
+            mask = mask & ~self.quarantine.mask_for(idx)
+        return payload, scales, mask
 
     def step_once(self) -> bool:
         """Dispatch one plan step (and drain past ``inflight``); returns
@@ -672,21 +761,36 @@ class JobStepper:
         clock = time.perf_counter
         step = self._step
         idx = self.pl.step_indices(step)
-        mask = self.pl.step_mask(step)
         segments, rows = _window_rows(
             {k: w.ids(idx, self.m) for k, w in self._wins.items()})
-        host = self._host_arrays(idx, mask, rows)
+        payload, scales, mask = self._fetch(step, idx)
+        n_dev = len(self.executors)
+        blocks = {k: partition_lib.split_rows(v, n_dev) for k, v in
+                  (("mask", mask), ("payload", payload), ("scales", scales),
+                   ("idx", idx)) if v is not None}
+        idx_blocks = blocks.pop("idx")
         t0 = clock()
-        dev = self._h2d.ship(host)
+        devs = []
+        for e, h2d in enumerate(self._h2d):
+            arrays = {k: b[e] for k, b in blocks.items()}
+            if e == 0:
+                # what the carry update on the first executor reads
+                arrays["rows"] = rows
+                if n_dev > 1:
+                    arrays["all_mask"] = mask
+            devs.append(h2d.ship(arrays))
         t1 = clock()
-        if self.source.device_synth:
-            out = self._step_fn(idx, dev["mask"])
-        elif self._raw:
-            out = self._step_fn(dev["payload"], dev["mask"], dev["scales"])
-        else:
-            out = self._step_fn(dev["payload"], dev["mask"])
-        self._agg_state = self._agg_fn(self._agg_state, out, dev["mask"],
-                                       segments, dev["rows"])
+        outs = []
+        for fn, dev, idx_e in zip(self._step_fns, devs, idx_blocks):
+            if self.source.device_synth:
+                outs.append(fn(idx_e, dev["mask"]))
+            else:
+                outs.append(fn(dev["payload"], dev["mask"],
+                               dev.get("scales")))
+        out = outs[0] if n_dev == 1 else _cat_outputs(outs, self.device)
+        cmask = devs[0]["all_mask" if n_dev > 1 else "mask"]
+        self._agg_state = self._agg_fn(self._agg_state, out, cmask,
+                                       segments, devs[0]["rows"])
         # what the drain reads, copied from THIS step's state: the carry
         # a commit persists must match the step's cursor, however many
         # steps have been dispatched since
@@ -699,8 +803,10 @@ class JobStepper:
             fetch.update({("carry", k): v
                           for k, v in self._agg_state.items()})
         pending = self._d2h.start(fetch)
-        payload = None if self.options.donate else dev.get("payload")
-        self._inflight.append((step, idx, mask, pending, commit, payload))
+        keep_alive = None if self.options.donate \
+            else [d.get("payload") for d in devs]
+        self._inflight.append((step, idx, mask, pending, commit,
+                               keep_alive))
         self._step += 1
         self.host_seconds["h2d"] += t1 - t0
         self.host_seconds["dispatch"] += clock() - t1
@@ -724,7 +830,7 @@ class JobStepper:
     def _drain(self):
         """Wait for the oldest in-flight step's copies, then write and
         commit it."""
-        step, idx, mask, pending, commit, _payload = \
+        step, idx, mask, pending, commit, _keep_alive = \
             self._inflight.popleft()
         t0 = time.perf_counter()
         host = self._d2h.wait(pending)
@@ -743,6 +849,12 @@ class JobStepper:
             # casts losslessly, _finalize_rows widens to float64 itself
             agg_host = {k: v for (kind, k), v in host.items()
                         if kind == "carry" and k != "__live__"}
+            if self.quarantine is not None:
+                # a snapshot of the bad-record set rides the commit as an
+                # opaque key (bad records are deterministic per record,
+                # so a snapshot "ahead" of this step's cursor only
+                # pre-masks records that would fail again anyway)
+                agg_host["__quarantine__"] = self.quarantine.as_array()
             self._flush_closed(agg_host, self.pl.cursor_after(step))
             self.sink.commit(self.pl, step, agg_host,
                              float(host[("carry", "__live__")]))
@@ -777,9 +889,11 @@ class JobStepper:
         """Drain the pipeline, finalize every window (trailing partial
         ones included) and the epoch aggregates; idempotent.  Returns
         (features, epoch, windows, window_edges, n_records, events,
-        plan) — see job.JobResult; ``events`` is the sink's {name:
-        EventLog} for ragged features (None when the job has none, or
-        the sink streams)."""
+        plan, quarantine) — see job.JobResult; ``events`` is the sink's
+        {name: EventLog} for ragged features (None when the job has
+        none, or the sink streams); ``quarantine`` the bad-record report
+        (None unless the job tolerates bad records), with a
+        RuntimeWarning whenever it names a record."""
         if not self._started:
             raise RuntimeError("JobStepper.finish before start()")
         if self._result is not None:
@@ -800,9 +914,20 @@ class JobStepper:
         window_edges = {name: self._edges[name].copy()
                         for name in self._windows_out}
         events = self.sink.event_result() if self._ragged else None
+        qreport = None
+        if self.quarantine is not None:
+            qreport = self.quarantine.report()
+            if qreport["records"]:
+                warnings.warn(
+                    f"{len(qreport['records'])} record(s) quarantined as "
+                    f"bad data (budget {qreport['budget']}): "
+                    f"{qreport['records']} — masked to reduction "
+                    f"identities in aggregates, never written per "
+                    f"record; see JobResult.quarantine for the "
+                    f"per-record reasons", RuntimeWarning, stacklevel=2)
         self._result = (self.sink.result(), epoch, self._windows_out,
                         window_edges, int(host_state["__live__"]), events,
-                        self.pl)
+                        self.pl, qreport)
         return self._result
 
     def close(self):
@@ -829,12 +954,15 @@ def run_job(m: DatasetManifest, p: DepamParams, specs: list[FeatureSpec],
             source: Source, sink: Sink, pl_: ShardPlan, use_kernels: bool,
             max_steps: int | None, options: ExecOptions | None = None,
             window: Window | None = None,
-            device: torch.device = torch.device("cuda")):
+            device: torch.device = torch.device("cuda"), mesh=None,
+            data_axes: tuple[str, ...] = ("data",), quarantine=None):
     """Drive the job over plan ``pl_`` to completion; resumable when the
     sink is.  Returns (features, epoch, windows, window_edges,
-    n_records, events, plan)."""
+    n_records, events, plan, quarantine)."""
     return drive(JobStepper(m, p, specs, source, sink, pl_, use_kernels,
-                            max_steps, options, window, device=device))
+                            max_steps, options, window, device=device,
+                            mesh=mesh, data_axes=data_axes,
+                            quarantine=quarantine))
 
 
 def drive(stepper: JobStepper):

@@ -7,12 +7,16 @@
     result = (api.job(manifest, params)
                  .features("welch", "spl", "tol", "ltsa")
                  .window(records=64)  # optional: reduction resolution
+                 .shards(4)           # optional: logical partition
+                 .on(mesh)            # optional: executors (launch.mesh)
                  .source(reader)      # optional: default device synthesis
                  .to("/tmp/depam")    # optional: default in-memory
                  .chunk(8)
                  .payload("int16")    # optional: raw-PCM transport
                  .async_io(depth=2)   # optional: pipelined executor
                  .events(60.0, impulsive=True)  # optional: detection
+                 .retry(attempts=3)   # optional: bounded retry at IO
+                 .tolerate(bad_records=2)  # optional: quarantine
                  .device("cuda")      # the default; "cpu" opts out
                  .run())
 
@@ -21,7 +25,8 @@ Every setter returns the job; ``run()`` validates the configuration
 conflict before any IO), builds one step over all selected features,
 and drives the plan to completion (resuming if the sink supports it).
 The job runs on the CUDA device unless ``.device("cpu")`` asks for the
-CPU; without a CUDA device, the default raises instead of falling back.
+CPU, or a mesh of CPU devices is given; without a CUDA device, the
+default raises instead of falling back.
 """
 from __future__ import annotations
 
@@ -33,9 +38,13 @@ import torch
 from repro_torch.core.manifest import DatasetManifest, ShardPlan, plan
 from repro_torch.core.params import DepamParams
 from repro_torch.device import resolve_device
+from repro_torch.distributed.partition import (build_partition,
+                                               shard_sharding)
+from repro_torch.faults.plan import FaultPlan
+from repro_torch.faults.retry import Retrier, RetryPolicy
 from . import engine
 from .features import EPOCH_WINDOW, FeatureSpec, Window, resolve_features
-from .sinks import AsyncSink, Sink, as_sink
+from .sinks import AsyncSink, Sink, StoreSink, as_sink
 from .sources import PrefetchSource, Source, as_source
 
 
@@ -53,6 +62,12 @@ class JobResult:
         (per-record TRUE counts + kept rows); None when the job selects
         no ragged feature or the sink streams.
 
+    ``quarantine`` is the bad-record accounting of a tolerant job
+    (``.tolerate(bad_records=N)``): ``{"budget", "records", "reasons"}``
+    — every quarantined record id with the fault that condemned it.
+    None unless the job tolerates bad records; the engine also warns
+    whenever the set is not empty.
+
     ``result[name]`` looks up all four; a name present in more than one
     namespace raises instead of silently preferring one.
     """
@@ -64,6 +79,7 @@ class JobResult:
     n_records: int
     plan: ShardPlan
     events: dict | None = None
+    quarantine: dict | None = None
 
     def __getitem__(self, name: str):
         spaces = [("features", self.features or {}),
@@ -98,14 +114,45 @@ class SoundscapeJob:
         self._max_steps: int | None = None
         self._payload_dtype: str | None = None
         self._window: Window = EPOCH_WINDOW
-        self._device: str | torch.device = "cuda"
+        self._device: str | torch.device | None = None   # None: "cuda"
         self._exec = engine.ExecOptions()
+        self._mesh = None
+        self._data_axes: tuple[str, ...] = ("data",)
+        self._shards: int | None = None
+        self._fault_plan: FaultPlan | None = None
+        self._retry: RetryPolicy | None = None
+        self._tolerate: int | None = None
 
     def features(self, *feats: str | FeatureSpec) -> "SoundscapeJob":
         """Select registered feature names and/or inline FeatureSpecs."""
         if not feats:
             raise ValueError("select at least one feature")
         self._features = list(feats)
+        return self
+
+    def on(self, mesh, data_axes: tuple[str, ...] = ("data",)
+           ) -> "SoundscapeJob":
+        """Lay the job over ``data_axes`` of a mesh
+        (``launch.mesh.make_host_mesh`` / ``device_mesh``): one executor
+        per data coordinate, each owning its consecutive shard rows.
+        None removes a previously-set mesh."""
+        self._mesh = mesh
+        self._data_axes = tuple(data_axes)
+        return self
+
+    def shards(self, n: int | None) -> "SoundscapeJob":
+        """Fix the job's LOGICAL partition count independently of the
+        mesh: the dataset is split into ``n`` contiguous worker slices
+        (cut on file boundaries where the files allow — see
+        ``distributed.partition.build_partition``), and the mesh's
+        executors take ``n / D`` slices each.  Every array shape and
+        reduction order is a function of ``n`` alone, so any executor
+        count dividing ``n`` gives the same bits, fresh or resumed.
+        Default (None): one slice per executor, or the interleaved
+        single-slice plan without a mesh."""
+        if n is not None and int(n) < 1:
+            raise ValueError(f"shards must be >= 1, got {n}")
+        self._shards = None if n is None else int(n)
         return self
 
     def source(self, src) -> "SoundscapeJob":
@@ -217,12 +264,94 @@ class SoundscapeJob:
         return self
 
     def device(self, device: str | torch.device) -> "SoundscapeJob":
-        """Where the job runs: ``"cuda"`` (the default) or ``"cpu"``."""
+        """Where the job runs: ``"cuda"`` (the default) or ``"cpu"``.
+        With a mesh, the mesh's devices decide; a device of another
+        kind than the mesh's is refused."""
         self._device = device
         return self
 
+    def retry(self, attempts: int = 3, *, base_delay: float = 0.01,
+              max_delay: float = 1.0, jitter: float = 0.5,
+              seed: int = 0) -> "SoundscapeJob":
+        """Bounded retry for transient failures at the IO seams.
+
+        One shared budget covers source reads and sink writes/commits:
+        ``attempts`` tries per operation, capped exponential backoff
+        from ``base_delay`` to ``max_delay`` with deterministic
+        ``jitter``.  Only ``faults.is_retryable`` failures are retried;
+        bad records propagate (or quarantine, see :meth:`tolerate`), and
+        a failure on the device is never retried.  After the budget the
+        job fails with a ``RetryExhausted`` naming the fault."""
+        self._retry = RetryPolicy(attempts=attempts, base_delay=base_delay,
+                                  max_delay=max_delay, jitter=jitter,
+                                  seed=seed)
+        return self
+
+    def tolerate(self, *, bad_records: int) -> "SoundscapeJob":
+        """Quarantine up to ``bad_records`` corrupt or truncated records
+        instead of failing the job.  Quarantined records are masked out
+        of every aggregate and never written per record; the set rides
+        each commit (bitwise resume), ``JobResult.quarantine`` names
+        every record and its fault, and a RuntimeWarning fires whenever
+        the set is not empty.  One bad record past the budget raises
+        ``QuarantineExceeded``."""
+        if int(bad_records) < 0:
+            raise ValueError(
+                f"bad_records must be >= 0, got {bad_records}")
+        self._tolerate = int(bad_records)
+        return self
+
+    def inject(self, plan_: FaultPlan | None) -> "SoundscapeJob":
+        """Thread a deterministic ``faults.FaultPlan`` through every
+        seam of this job (chaos testing): its read faults wrap the
+        source, its sink faults wrap the sink, and its store crash
+        points arm the feature store's commit protocol.  Any injected
+        schedule either completes bitwise equal to the fault-free run or
+        fails loudly naming the fault.  None removes a set plan."""
+        self._fault_plan = plan_
+        return self
+
+    def _executors(self) -> tuple[torch.device, ...] | None:
+        """The mesh's executors, checked against ``.device``: a mesh of
+        another kind than an explicit device is refused, naming both."""
+        if self._mesh is None:
+            return None
+        devs = shard_sharding(self._mesh, self._data_axes)
+        kinds = {d.type for d in devs}
+        if len(kinds) != 1:
+            raise ValueError(f"the mesh mixes device kinds {sorted(kinds)}")
+        if self._device is not None:
+            want = torch.device(self._device).type
+            if want not in kinds:
+                raise ValueError(
+                    f".device({str(self._device)!r}) conflicts with the "
+                    f"mesh of {kinds.pop()} devices given to .on(...): "
+                    f"the job runs where its mesh is — drop .device(...) "
+                    f"or build the mesh on {want} devices")
+        for d in set(devs):
+            resolve_device(d)
+        return devs
+
     def _plan(self) -> ShardPlan:
-        return plan(self._m, 1, self._chunk)
+        """The job's step plan.
+
+        A single-slice job with no explicit ``.shards(...)`` keeps the
+        interleaved :class:`ShardPlan` (existing stores resume against
+        its cursor layout unchanged); any multi-executor or explicitly
+        partitioned job gets a file-boundary-aware ``PartitionPlan``
+        whose slice count L is fixed by ``.shards(L)`` (default: the
+        mesh's executor count)."""
+        devs = self._executors()
+        n_dev = 1 if devs is None else len(devs)
+        n_shards = self._shards if self._shards is not None else n_dev
+        if n_dev > 1 and n_shards % n_dev:
+            raise ValueError(
+                f".shards({n_shards}) is not divisible by the mesh's "
+                f"{n_dev} data-parallel devices — every device must own "
+                f"the same number of worker slices")
+        if n_shards == 1 and self._shards is None:
+            return plan(self._m, 1, self._chunk)
+        return build_partition(self._m, n_shards, self._chunk)
 
     def resume_step(self) -> int:
         """The plan step a run() would resume at (0 = from scratch)."""
@@ -253,31 +382,69 @@ class SoundscapeJob:
                         f"the reduction output")
 
     def _stepper(self) -> engine.JobStepper:
-        """Validate, wrap source and sink per the executor options, and
-        build the resumable stepper this configuration describes."""
-        device = resolve_device(self._device)
+        """Validate, wrap source and sink per the executor and fault
+        options, and build the resumable stepper this configuration
+        describes."""
+        devs = self._executors()
+        device = devs[0] if devs is not None \
+            else resolve_device(self._device or "cuda")
+        pl_ = self._plan()
         specs = resolve_features(self._features)
         source: Source = as_source(self._source)
         self._validate(specs, source)
         if self._payload_dtype is not None:
             source = source.with_payload(self._payload_dtype)
+
+        # fault machinery, innermost first, only when opted into — the
+        # default path composes no extra layer:
+        #   PrefetchSource(ResilientSource(FaultySource(inner)))
+        #   AsyncSink(ResilientSink(FaultySink(inner)))
+        faulted = self._fault_plan is not None
+        resilient = faulted or self._retry is not None \
+            or self._tolerate is not None
+        quarantine = retrier = None
+        if resilient:
+            from repro_torch.faults.resilient import (
+                FaultySink, FaultySource, Quarantine, ResilientSink,
+                ResilientSource)
+            retrier = Retrier(self._retry or RetryPolicy())
+            if self._tolerate is not None:
+                quarantine = Quarantine(self._tolerate)
+            fp = self._fault_plan
+            inject_reads = faulted and any(
+                s.site == "source.fetch" for s in fp.specs)
+            inject_sink = faulted and any(
+                s.site in ("sink.write", "sink.commit") for s in fp.specs)
+            if not source.device_synth:
+                if inject_reads:
+                    source = FaultySource(source, fp)
+                source = ResilientSource(source, retrier=retrier,
+                                         quarantine=quarantine)
         if self._exec.prefetch_depth > 0 and not source.device_synth \
                 and not isinstance(source, PrefetchSource):
             source = PrefetchSource(source, depth=self._exec.prefetch_depth)
         sink: Sink = as_sink(self._sink)
+        if faulted and isinstance(sink, StoreSink):
+            # arm the store's commit-protocol crash points
+            sink.store.faults = self._fault_plan
+        if resilient:
+            if inject_sink:
+                sink = FaultySink(sink, self._fault_plan)
+            sink = ResilientSink(sink, retrier)
         if self._exec.inflight > 0 and not isinstance(sink, AsyncSink):
             sink = AsyncSink(sink, queue_size=self._exec.queue_size)
         return engine.JobStepper(
-            self._m, self._p, specs, source, sink, self._plan(),
+            self._m, self._p, specs, source, sink, pl_,
             self._use_kernels, self._max_steps, self._exec,
-            window=self._window, device=device)
+            window=self._window, device=device, mesh=self._mesh,
+            data_axes=self._data_axes, quarantine=quarantine)
 
     def run(self) -> JobResult:
-        features, epoch, windows, edges, n_records, events, pl_ = \
+        features, epoch, windows, edges, n_records, events, pl_, quar = \
             engine.drive(self._stepper())
         return JobResult(features=features, epoch=epoch, windows=windows,
                          window_edges=edges, n_records=n_records,
-                         events=events, plan=pl_)
+                         events=events, plan=pl_, quarantine=quar)
 
 
 def job(manifest: DatasetManifest, params: DepamParams) -> SoundscapeJob:

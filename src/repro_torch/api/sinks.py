@@ -88,6 +88,37 @@ class EventLog:
         return self.rows[:, self.columns.index(name)]
 
 
+def reorder_event_rows(counts: np.ndarray, rows: np.ndarray,
+                       capacity: int, order: np.ndarray) -> np.ndarray:
+    """Permute an append-ordered event log into record order.
+
+    A partitioned plan's shards advance in parallel, so the append-only
+    log interleaves the spans (step-major); ``order`` is the plan's
+    :meth:`record_order` — the global record ids in append order.  The
+    permutation is pure bookkeeping: ``counts`` are per-record already,
+    and each record's kept rows are contiguous within its append slot.
+    Identity orders (every single-shard plan) return ``rows`` as-is, as
+    does a partially-committed log whose appended total does not match
+    the counts (only a completed log has a well-defined global order).
+    """
+    order = np.asarray(order, np.int64)
+    if order.size == 0 or bool(np.all(np.diff(order) > 0)):
+        return rows
+    kept = np.minimum(np.asarray(counts), capacity).astype(np.int64)
+    kept_append = kept[order]
+    total = int(kept_append.sum())
+    if total != len(rows):
+        return rows
+    src_start = np.concatenate([[0], np.cumsum(kept_append)[:-1]])
+    dst_all = np.concatenate([[0], np.cumsum(kept)[:-1]])
+    dst_start = dst_all[order]
+    dst_idx = np.repeat(dst_start, kept_append) \
+        + (np.arange(total) - np.repeat(src_start, kept_append))
+    out = np.empty_like(rows)
+    out[dst_idx] = rows
+    return out
+
+
 class Sink:
     resumable: bool = False
     # Whether commit() needs the reduction carry.  The engine keeps the
@@ -277,12 +308,15 @@ class StoreSink(Sink):
             self.store.append_events(name, indices, counts, rows)
 
     def event_result(self):
-        # the port's plans have one shard, whose log is appended in
-        # record order (a partitioned plan would need the reference's
-        # reorder_event_rows)
         out = {}
+        order = self._plan.record_order() if self._plan is not None \
+            else None
         for name, (cols, cap) in self._event_meta.items():
             counts, rows = self.store.read_events(name)
+            if order is not None:
+                # the durable log is append-ordered (step-major across
+                # a partition's spans); materialize it in record order
+                rows = reorder_event_rows(counts, rows, cap, order)
             out[name] = EventLog(counts=counts, rows=rows, columns=cols,
                                  capacity=cap)
         return out

@@ -116,15 +116,46 @@ class Source:
         return np.full(np.asarray(indices).shape, PCM_DECODE_SCALE,
                        np.float32)
 
-    def stream(self, plan: ShardPlan, start: int,
-               stop: int) -> Iterator[np.ndarray]:
-        """Yield one payload per plan step in [start, stop), in order."""
+    def stream(self, plan: ShardPlan, start: int, stop: int,
+               rows: "slice | None" = None) -> Iterator[np.ndarray]:
+        """Yield one payload per plan step in [start, stop), in order.
+
+        ``rows`` restricts each step to a slice of the plan's leading
+        shard axis: a process that feeds only some executors streams
+        only their shard rows, so it never reads another worker's
+        files.  None streams the full ``(n_shards, chunk)`` payload."""
+        if rows is not None:
+            plan = RowSlicePlan(plan, rows)
         for step in range(start, stop):
             yield self.fetch(plan.step_indices(step))
 
     def close(self) -> None:
         """Release IO resources; called by the engine when the job ends.
         Safe to call twice."""
+
+
+class RowSlicePlan:
+    """A view of a plan restricted to a slice of its shard rows.
+
+    Duck-types the stepping surface (``n_steps`` / ``step_indices`` /
+    ``step_mask``) that sources and the SpeculativeLoader drive, so a
+    reader can prefetch exactly its own shards' records (its own files,
+    under a file-aligned partition) while the step and commit geometry
+    stays the full plan's.
+    """
+
+    def __init__(self, plan, rows: slice):
+        self._plan = plan
+        self._rows = rows
+
+    def __getattr__(self, name):
+        return getattr(self._plan, name)
+
+    def step_indices(self, step: int) -> np.ndarray:
+        return self._plan.step_indices(step)[self._rows]
+
+    def step_mask(self, step: int) -> np.ndarray:
+        return self._plan.step_mask(step)[self._rows]
 
 
 class SynthSource(Source):
@@ -321,8 +352,10 @@ class PrefetchSource(Source):
     def close(self) -> None:
         self.inner.close()
 
-    def stream(self, plan: ShardPlan, start: int,
-               stop: int) -> Iterator[np.ndarray]:
+    def stream(self, plan: ShardPlan, start: int, stop: int,
+               rows: "slice | None" = None) -> Iterator[np.ndarray]:
+        if rows is not None:
+            plan = RowSlicePlan(plan, rows)
         # read tasks split along the manifest's file boundaries (when
         # bound), so each task coalesces into sequential IO on one
         # file; a partitioned plan's span offsets join the cut set, so

@@ -6,7 +6,8 @@ callers; new code should use::
     from repro_torch import api
     api.job(manifest, params).features("welch", "spl", "tol").run()
 
-Sharding (``mesh``/``data_axes``) comes with the sharded slice.
+``mesh``/``data_axes`` lay the job over the executors of a host mesh
+(``repro_torch.launch.mesh``), as ``job(...).on(mesh, data_axes)``.
 """
 from __future__ import annotations
 
@@ -20,22 +21,26 @@ from .manifest import DatasetManifest
 from .params import DepamParams
 
 
-def run_pipeline(m: DatasetManifest, p: DepamParams,
+def run_pipeline(m: DatasetManifest, p: DepamParams, mesh=None,
+                 data_axes: tuple[str, ...] = ("data",),
                  chunk_records: int = 8, store=None, with_tol: bool = True,
                  use_kernels: bool = True,
                  reader: Callable[[np.ndarray], np.ndarray] | None = None,
                  max_steps: int | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device | None = None):
     """Drive the full DEPAM job; resumable via ``store`` (feature store).
 
     reader: optional host function global_indices((n_shards, chunk)) ->
     waveforms (n_shards, chunk, record_size); defaults to device
-    synthesis.  Returns the legacy dict (ltsa_db, welch, spl, tol,
-    mean_welch, ...).
+    synthesis.  ``device`` defaults to the CUDA device, or to the
+    mesh's devices when a mesh is given.  Returns the legacy dict
+    (ltsa_db, welch, spl, tol, mean_welch, ...).
     """
     feats = ["welch", "spl"] + (["tol"] if with_tol else [])
-    j = (job(m, p).features(*feats).chunk(chunk_records)
-         .kernels(use_kernels).limit(max_steps).device(device))
+    j = (job(m, p).features(*feats).on(mesh, data_axes)
+         .chunk(chunk_records).kernels(use_kernels).limit(max_steps))
+    if device is not None:
+        j = j.device(device)
     if reader is not None:
         j = j.source(reader)
     if store is not None:

@@ -1,2 +1,2 @@
-"""Partitioned execution plans (``partition``); the device placement
-helpers come with sharded execution."""
+"""Partitioned execution plans and their placement over executors
+(``partition``)."""

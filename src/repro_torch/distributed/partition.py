@@ -269,3 +269,49 @@ def adopt_plan(current, committed: dict | None):
             f"since the cursor was written; use a fresh store directory")
     return rebuilt
 
+
+
+# -- device placement ----------------------------------------------------
+#
+# In the port a placement is an ordered tuple of executors, one
+# ``torch.device`` each (repeats allowed: one card, or the CPU, can host
+# several).  Executor ``e`` of ``D`` owns the ``n_shards / D``
+# consecutive logical shard rows ``[e * n_shards / D, (e + 1) *
+# n_shards / D)`` of every step.
+
+def shard_sharding(mesh, data_axes: tuple[str, ...]) -> tuple:
+    """The executors that lay a plan's leading shard axis over the
+    mesh's data axes, in row order: one device per data coordinate (the
+    device at index 0 of every other axis, which the port replicates
+    over)."""
+    names = tuple(mesh.axis_names)
+    missing = [a for a in data_axes if a not in names]
+    if missing:
+        raise ValueError(f"data axes {missing} are not axes of the mesh "
+                         f"{names}")
+    perm = [names.index(a) for a in data_axes] \
+        + [i for i, a in enumerate(names) if a not in data_axes]
+    grid = np.transpose(np.asarray(mesh.devices, dtype=object), perm)
+    n = data_parallel_size(mesh, data_axes)
+    return tuple(grid.reshape(n, -1)[:, 0].tolist())
+
+
+def data_parallel_size(mesh, data_axes: tuple[str, ...]) -> int:
+    n = 1
+    for a in data_axes:
+        n *= mesh.shape[a]
+    return n
+
+
+def split_rows(x: np.ndarray, n_executors: int) -> list[np.ndarray]:
+    """One step's host array, ``(n_shards, chunk, ...)``, as the row
+    blocks its executors receive: block ``e`` holds shard rows ``[e *
+    n_shards / n_executors, (e + 1) * n_shards / n_executors)`` — views,
+    no copy.  The single-process counterpart of the reference's
+    ``ship``: each executor is handed only its own rows."""
+    n = x.shape[0]
+    if n_executors < 1 or n % n_executors:
+        raise ValueError(f"{n} shard rows cannot be split evenly over "
+                         f"{n_executors} executor(s)")
+    per = n // n_executors
+    return [x[e * per:(e + 1) * per] for e in range(n_executors)]

@@ -1,30 +1,56 @@
-"""The fault classes the port raises so far.
+"""The fault taxonomy — every named failure the stack can survive.
 
-The rest of the reference's taxonomy (stalls, injected crashes, retry
-budgets) comes with the faults slice.  Until then the port needs what
-the feature store raises when a committed artifact fails verification,
-what the wav readers raise on a short file, and the transient classes
-and predicates the prefetching loader retries by.
+Spark's fault-tolerance story rests on a *classification*: a failed
+task is retried only when the failure is attributable to the attempt
+(executor lost, fetch failure) and not to the data; a corrupt split is
+skipped (``spark.files.ignoreCorruptFiles``) only when the user opted
+in; everything else fails the job loudly.  This module is that
+classification for the DEPAM stack.  Every layer (loader, engine,
+sinks, store, service) dispatches on these classes — never on message
+strings — so the retry/quarantine/restart machinery composes without
+guessing what an exception meant.
+
+Classes
+-------
 
 ``FaultError``
-    Base for every classified failure; carries ``fault`` (the taxonomy
-    name) so an error that escapes to the user names the fault that
-    caused it.
+    Base for every *injected or classified* failure; carries ``fault``
+    (the taxonomy name) so an error that escapes to the user names the
+    fault that caused it — the "loud" half of the bitwise-or-loud
+    invariant.
 ``TransientError``
-    Attributable to the attempt, not the data: retrying the same
-    operation may succeed.  The only class a retry ever retries.
+    Failures attributable to the attempt, not the data: retrying the
+    same operation may succeed (flaky NFS read, sink IO hiccup).  The
+    only class the retry machinery ever retries.
 ``TransientReadError`` / ``SinkWriteError``
     Transient failures at the two IO seams (source reads, sink writes).
 ``BadRecordError``
-    Attributable to the data (``bad_record = True``): retrying cannot
-    help.
-``TruncatedRecordError``
-    A wav file is shorter than the manifest says; also a ValueError.
+    Failures attributable to the *data*: retrying cannot help
+    (corrupt bytes, truncated file tail).  Quarantinable under
+    ``.tolerate(bad_records=N)`` — never retried.
+``CorruptRecordError`` / ``TruncatedRecordError``
+    The two bad-record shapes.  ``TruncatedRecordError`` also
+    subclasses ``ValueError`` so pre-existing callers catching the old
+    truncated-read ValueError keep working.
+``StreamStall``
+    A live source's producer starved a blocking fetch.  Subclasses
+    ``TimeoutError`` (the pre-classification type) and is retryable at
+    the tenant level: a serving layer parks the tenant and re-admits
+    it, instead of the stall killing the tenant outright.  The port
+    has no live source yet; the class is here so the taxonomy is
+    whole.
+``RetryExhausted``
+    The bounded retry budget ran out; chains the last transient error.
+    Deliberately NOT transient itself — budgets do not nest.
+``QuarantineExceeded``
+    More bad records than ``.tolerate(bad_records=N)`` allowed.
 ``StoreIntegrityError``
-    A committed store artifact (``agg-*.npz`` sidecar, event-log
-    prefix) failed its CRC32
-    — the store refuses to deserialize garbage and names the file
-    instead.
+    A committed store artifact (``agg-*.npz`` sidecar, event-log tail)
+    failed its CRC32 — the store refuses to deserialize garbage and
+    names the file instead.
+``InjectedCrash``
+    A :class:`~repro_torch.faults.plan.FaultPlan` crash point fired (process
+    death simulation for the store's commit protocol).
 
 ``is_retryable(exc)`` / ``is_bad_record(exc)`` are the two predicates
 the machinery uses; third-party errors can opt in by exposing a true
@@ -70,6 +96,14 @@ class BadRecordError(FaultError):
     bad_record = True
 
 
+class CorruptRecordError(BadRecordError):
+    """A record's bytes are garbage (failed decode/checksum)."""
+
+    def __init__(self, message: str, *, fault: str = "record_corrupt",
+                 record: int | None = None):
+        super().__init__(message, fault=fault, record=record)
+
+
 class TruncatedRecordError(BadRecordError, ValueError):
     """A file is shorter than the manifest says (truncated tail).
 
@@ -83,6 +117,36 @@ class TruncatedRecordError(BadRecordError, ValueError):
         BadRecordError.__init__(self, message, fault=fault, record=record)
 
 
+class StreamStall(TimeoutError):
+    """A live source's blocking fetch starved waiting for its producer.
+
+    Retryable at the TENANT level (park + restart policy), not at the
+    read level — retrying the fetch immediately would just starve
+    again.  Subclasses TimeoutError for pre-classification callers.
+    """
+
+    retryable = True
+    fault = "live_stall"
+
+
+class RetryExhausted(FaultError):
+    """Bounded retry ran out of budget; chains the last attempt's error.
+
+    Not transient: a retry budget is accounted once, at the seam that
+    owns it — wrapping layers must fail loudly, not retry the retrier.
+    """
+
+    def __init__(self, message: str, *, fault: str = "retry_exhausted"):
+        super().__init__(message, fault=fault)
+
+
+class QuarantineExceeded(FaultError):
+    """More bad records than ``.tolerate(bad_records=N)`` allowed."""
+
+    def __init__(self, message: str, *, fault: str = "quarantine_budget"):
+        super().__init__(message, fault=fault)
+
+
 class StoreIntegrityError(FaultError):
     """A committed store artifact failed verification; names the file."""
 
@@ -90,6 +154,17 @@ class StoreIntegrityError(FaultError):
                  path: str | None = None):
         super().__init__(message, fault=fault)
         self.path = path
+
+
+class InjectedCrash(FaultError):
+    """A FaultPlan crash point fired (simulated process death)."""
+
+    def __init__(self, site: str, *, fault: str = "crash"):
+        super().__init__(
+            f"injected crash (fault {fault!r}) at {site!r} — simulated "
+            f"process death; a real crash here leaves exactly this "
+            f"on-disk state", fault=fault)
+        self.site = site
 
 
 def is_retryable(exc: BaseException) -> bool:

@@ -1,1 +1,2 @@
-"""Command-line entry points (``depam_run``)."""
+"""Command-line entry points (``depam_run``) and host meshes
+(``mesh``)."""

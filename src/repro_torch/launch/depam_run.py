@@ -11,15 +11,22 @@ submitting the Spark job of the paper:
       [--window N | --window per-file] [--wav-dir /path/to/wavs] \
       [--data-root /path/to/real/wavs] [--prefetch-depth 2] [--sync-io] \
       [--payload int16] [--events [--event-threshold-db DB]] \
+      [--shards L] [--data-parallel N] \
       [--timestamps auto|none|PATTERN] [--list-features]
 
 The flags, prints, resume behaviour and ``summary.json`` fields are the
 reference launcher's (``python -m repro.launch.depam_run``).  The job
 runs on the CUDA device; ``--device cpu`` runs the plain PyTorch path
 on the CPU instead.  Flags of modules the port does not have yet exit
-non-zero naming the ``ROADMAP.md`` queue item they wait for:
-``--shards`` and ``--data-parallel`` (A3, sharded execution), ``--to
+non-zero naming the ``ROADMAP.md`` queue item they wait for: ``--to
 zarr|netcdf`` and ``--instrument`` (A5, labeled outputs).
+
+``--shards L`` fixes a file-aligned partition of L worker slices;
+``--data-parallel N`` lays the job over the first N visible CUDA
+devices (with ``--device cpu``, over N CPU executors), each owning L/N
+slices.  Any N dividing L gives bitwise-identical results, and a run
+resumes at another N.  Fewer than N visible devices exits non-zero,
+naming the count.
 
 ``--timestamps`` controls parsing of per-file UTC start times from the
 wav filenames scanned by ``--data-root``: ``auto`` (default) tries the
@@ -77,17 +84,18 @@ import json
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import api, resolve_device
 from repro_torch.core.manifest import DatasetManifest
 from repro_torch.core.params import PARAM_SET_1, PARAM_SET_2
 from repro_torch.core.store import FeatureStore
+from repro_torch.distributed.partition import build_partition
+from repro_torch.launch.mesh import device_mesh, make_host_mesh
 
 # flags of modules the port does not have yet, with the ROADMAP.md queue
 # item each waits for
 NOT_PORTED = {
-    "--data-parallel": "A3 (sharded execution)",
-    "--shards": "A3 (sharded execution)",
     "--to zarr|netcdf": "A5 (labeled outputs: ZarrSink, NetCDFSink)",
     "--instrument": "A5 (labeled outputs: .instrument())",
 }
@@ -189,7 +197,8 @@ def main(argv: list[str] | None = None) -> None:
                          "still reported on overflow; default: params)")
     ap.add_argument("--data-parallel", type=int, default=None,
                     help="run data-parallel over the first N visible "
-                         "devices (a (data=N, model=1) host mesh); "
+                         "CUDA devices (a (data=N, model=1) host mesh; "
+                         "with --device cpu, N CPU executors); "
                          "default: single-device")
     ap.add_argument("--shards", type=int, default=None,
                     help="logical worker-slice count for the partition "
@@ -221,9 +230,7 @@ def main(argv: list[str] | None = None) -> None:
                          "'none', a strptime pattern, or a regex with "
                          "named groups")
     a = ap.parse_args(argv)
-    for flag, given in (("--data-parallel", a.data_parallel is not None),
-                        ("--shards", a.shards is not None),
-                        ("--to zarr|netcdf", a.fmt != "store"),
+    for flag, given in (("--to zarr|netcdf", a.fmt != "store"),
                         ("--instrument", a.instrument is not None)):
         if given:
             ap.error(f"{flag} is not ported to repro_torch yet: it waits "
@@ -241,6 +248,18 @@ def main(argv: list[str] | None = None) -> None:
         return
     if a.out is None:
         ap.error("--out is required (unless --list-features)")
+    mesh = None
+    if a.data_parallel is not None:
+        try:
+            mesh = device_mesh(["cpu"] * a.data_parallel) \
+                if torch.device(a.device).type == "cpu" \
+                else make_host_mesh(data=a.data_parallel)
+        except ValueError as e:
+            ap.error(f"--data-parallel {a.data_parallel}: {e}")
+        if a.shards is not None and a.shards % a.data_parallel:
+            ap.error(f"--shards {a.shards} is not divisible by "
+                     f"--data-parallel {a.data_parallel}: every device "
+                     f"must own the same number of worker slices")
     try:
         resolve_device(a.device)
     except (RuntimeError, ValueError) as e:
@@ -278,6 +297,17 @@ def main(argv: list[str] | None = None) -> None:
     j = (api.job(m, p).features(*feats).chunk(a.chunk_records)
          .kernels(not a.no_kernels).to(sink).window(**win_kwargs)
          .device(a.device))
+    if mesh is not None:
+        j = j.on(mesh)
+        print(f"[depam] mesh: data={a.data_parallel} "
+              f"(of {mesh.devices.size} mesh devices)")
+    if a.shards is not None:
+        if a.shards < 1:
+            ap.error(f"--shards must be >= 1, got {a.shards}")
+        j = j.shards(a.shards)
+        part = build_partition(m, a.shards, a.chunk_records)
+        print(f"[depam] partition: {a.shards} worker slices, balance "
+              f"ratio {part.balance_ratio:.3f}")
     wav_dir = a.data_root or a.wav_dir
     if wav_dir:
         j = j.source(api.WavSource(wav_dir))

@@ -3,8 +3,11 @@ cpu``), over a tiny wav corpus for both paper parameter sets: the
 stored arrays equal the port's library job bitwise and the reference
 CLI's within tolerance, ``summary.json`` has the reference's keys,
 ``--sync-io`` writes the same bytes as the pipelined default, a second
-run resumes, and the flags of unported modules are refused loudly."""
+run resumes, ``--shards``/``--data-parallel`` store the library's
+sharded bits, and the flags of unported modules are refused loudly."""
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -13,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch import api
 from repro_torch.core.manifest import DatasetManifest
@@ -189,8 +193,96 @@ def test_second_run_resumes_and_changes_nothing(runs):
             assert np.array_equal(a, b, equal_nan=True), k
 
 
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    """Set 1 through the CLI with ``--shards 4 --data-parallel 2`` on
+    two CPU executors, one record a step; then the same command again."""
+    p = _params(1)
+    tmp = tmp_path_factory.mktemp("sharded")
+    wavs = str(tmp / "wavs")
+    write_dataset(wavs, _manifest(p), gen=_gen(p))
+    out = str(tmp / "out")
+    args = ["--param-set", "1", "--files", str(FILES),
+            "--records-per-file", str(PER_FILE), "--record-sec",
+            str(SETS[1][1]), "--chunk-records", "1", "--wav-dir", wavs,
+            "--out", out, "--features", ",".join(FEATURES), "--window",
+            str(WINDOW), "--events", f"--event-threshold-db={THRESHOLD_DB}",
+            f"--event-hysteresis-db={HYSTERESIS_DB}", "--device", "cpu",
+            "--shards", "4", "--data-parallel", "2"]
+    logs = []
+    for _ in range(2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            depam_run.main(args)
+        logs.append(buf.getvalue())
+    return {"p": p, "wavs": wavs, "out": out, "logs": logs,
+            "arrays": _stored(out)}
+
+
+def test_sharded_cli_equals_library_job_bitwise(sharded):
+    """``--shards 4 --data-parallel 2`` stores the same bits as the
+    library's ``.shards(4)`` job with no mesh, and prints the mesh and
+    partition lines."""
+    p = sharded["p"]
+    res = (api.job(_manifest(p), p).features(*FEATURES).chunk(1)
+           .shards(4).window(records=WINDOW)
+           .source(api.WavSource(sharded["wavs"]))
+           .events(THRESHOLD_DB, hysteresis_db=HYSTERESIS_DB,
+                   impulsive=True).device("cpu").run())
+    got = sharded["arrays"]
+    for k in DENSE + WINDOWED:
+        assert np.array_equal(got[k], res[k], equal_nan=True), k
+    for k in ("events", "impulsive"):
+        counts, rows = got[k]
+        assert np.array_equal(counts, res.events[k].counts), k
+        # the store's log is append-ordered; the library result is in
+        # record order, and the counts give the permutation
+        assert np.array_equal(
+            api.sinks.reorder_event_rows(counts, rows,
+                                         res.events[k].capacity,
+                                         res.plan.record_order()),
+            res.events[k].rows), k
+    log = sharded["logs"][0]
+    assert "[depam] mesh: data=2 (of 2 mesh devices)" in log
+    assert "[depam] partition: 4 worker slices, balance ratio" in log
+    summary = json.loads(Path(sharded["out"], "summary.json").read_text())
+    assert summary["records"] == FILES * PER_FILE
+
+
+def test_sharded_cli_rerun_resumes_and_changes_nothing(sharded):
+    log = sharded["logs"][1]
+    assert "[depam] resuming at step" in log
+    assert "job was already complete" in log
+    again = _stored(sharded["out"])
+    for k, v in sharded["arrays"].items():
+        for a, b in zip(v, again[k]) if isinstance(v, tuple) \
+                else [(v, again[k])]:
+            assert np.array_equal(a, b, equal_nan=True), k
+
+
+def test_data_parallel_beyond_the_visible_cards_exits_naming_the_count(
+        tmp_path, capsys):
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    with pytest.raises(SystemExit) as exc:
+        depam_run.main(["--out", str(tmp_path / "o"), "--shards",
+                        str(n + 1), "--data-parallel", str(n + 1)])
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert f"--data-parallel {n + 1}" in err
+    assert f"only {n} CUDA device(s) visible" in err
+    assert not (tmp_path / "o").exists()
+
+
+def test_shards_not_divisible_by_data_parallel_exits(tmp_path, capsys):
+    with pytest.raises(SystemExit) as exc:
+        depam_run.main(["--out", str(tmp_path / "o"), "--device", "cpu",
+                        "--shards", "3", "--data-parallel", "2"])
+    assert exc.value.code != 0
+    assert "not divisible" in capsys.readouterr().err
+    assert not (tmp_path / "o").exists()
+
+
 @pytest.mark.parametrize("flags, item", [
-    (["--shards", "2"], "A3"), (["--data-parallel", "1"], "A3"),
     (["--to", "zarr"], "A5"), (["--to", "netcdf"], "A5"),
     (["--instrument", "-170"], "A5")])
 def test_unported_flags_are_refused(flags, item, tmp_path, capsys):

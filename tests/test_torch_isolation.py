@@ -34,6 +34,7 @@ def test_import_leaves_out_jax_and_reference():
         "import repro_torch.kernels.events, repro_torch.data.wavio\n"
         "import repro_torch.meta, repro_torch.faults.errors\n"
         "import repro_torch.data.loader, repro_torch.launch.depam_run\n"
+        "import repro_torch.launch.mesh, repro_torch.faults.resilient\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -46,6 +47,7 @@ def test_import_leaves_out_jax_and_reference():
 
 def test_source_scan_finds_no_jax_or_reference_import():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "scripts").glob("torch_*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     names = {f.relative_to(ROOT).as_posix() for f in files}
@@ -54,7 +56,10 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "src/repro_torch/data/loader.py",
             "src/repro_torch/launch/depam_run.py",
             "src/repro_torch/meta/instrument.py",
-            "src/repro_torch/meta/timestamps.py"} <= names
+            "src/repro_torch/meta/timestamps.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/faults/resilient.py",
+            "scripts/torch_chaos_smoke.py"} <= names
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits

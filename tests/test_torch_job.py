@@ -17,9 +17,9 @@ from repro_torch.api.sources import synth_record
 
 FEATS = ("welch", "spl", "tol", "ltsa", "minmax")
 LINEAR = ("welch", "mean_welch", "ltsa", "min_welch", "max_welch")
+PARAM_SET_1_KW = dict(nfft=256, window_size=256, window_overlap=128)
 SHAPES = {   # name: (params, linear rel tol, dB abs tol)
-    "set1": (dict(nfft=256, window_size=256, window_overlap=128,
-                  record_size_sec=0.25), 1e-4, 1e-3),
+    "set1": (dict(PARAM_SET_1_KW, record_size_sec=0.25), 1e-4, 1e-3),
     "ct": (dict(nfft=1024, window_size=1024, window_overlap=0,
                 record_size_sec=4096 / 32768), 1e-3, 5e-3),
 }
@@ -229,11 +229,51 @@ def test_builder_refusals(tmp_path):
          .source(_readers(p, m.n_records)[0]).device("cpu").to(store).run())
 
 
+def test_reference_sharded_store_resumes_in_record_order(tmp_path):
+    """A store the reference committed after 2 steps of a ``.shards(4)``
+    job resumes in the port under ``.shards(4)``: the event log comes
+    back in record order, its onset, duration and peak bin equal, row
+    for row, to the reference's uninterrupted ``.shards(4)`` run, and
+    its peak dB within the SPL tolerance (the append-ordered log of a
+    partitioned plan goes through ``reorder_event_rows``)."""
+    from repro.data.wavio import write_dataset
+
+    kw = dict(PARAM_SET_1_KW, record_size_sec=0.5)
+    p, jp = DepamParams(**kw), JParams(**kw)
+    files = (3, 6, 3, 4, 4)
+    m = DatasetManifest.from_files(files, record_size=p.record_size,
+                                   fs=p.fs, seed=3)
+    jm = JManifest.from_files(files, record_size=jp.record_size,
+                              fs=jp.fs, seed=3)
+    root = str(tmp_path / "wavs")
+    write_dataset(root, jm)
+
+    def build(pkg, mm, pp):
+        return (pkg.job(mm, pp).features("welch", "spl").chunk(2)
+                .kernels(False).events(threshold_db=-25.0)
+                .source(pkg.WavSource(root)).shards(4))
+
+    want = build(japi, jm, jp).run()
+    store = str(tmp_path / "store")
+    build(japi, jm, jp).to(store).limit(2).run()
+    j = build(api, m, p).device("cpu").to(store)
+    assert j.resume_step() == 2
+    got = j.run()
+    assert got.plan.n_shards == 4
+    ge, we = got.events["events"], want.events["events"]
+    assert ge.n_events == we.n_events > 0
+    assert np.array_equal(ge.counts, np.asarray(we.counts))
+    wr = np.asarray(we.rows)
+    assert np.array_equal(ge.rows[:, :3], wr[:, :3])
+    assert np.max(np.abs(ge.rows[:, 3] - wr[:, 3])) < SHAPES["set1"][2]
+    assert np.max(np.abs(got["welch"] - want["welch"])
+                  / np.abs(want["welch"])) < SHAPES["set1"][1]
+
+
 # names of reference modules the port has not ported yet (ROADMAP.md
-# queue A4 faults: FaultPlan, FaultSpec, RetryPolicy; A5 labeled
-# outputs: ZarrSink, NetCDFSink, read_zarr_array, the formats module)
-UNPORTED_API = {"FaultPlan", "FaultSpec", "RetryPolicy", "ZarrSink",
-                "NetCDFSink", "read_zarr_array", "formats"}
+# queue A5 labeled outputs: ZarrSink, NetCDFSink, read_zarr_array, the
+# formats module)
+UNPORTED_API = {"ZarrSink", "NetCDFSink", "read_zarr_array", "formats"}
 
 
 def test_public_names_match_reference():
