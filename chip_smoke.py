@@ -37,9 +37,19 @@ async steps (device busy share, memcpy totals); and the CLI, ``python
 -m repro_torch.launch.depam_run --data-root``, over each set's wav for
 both payloads, pipelined and ``--sync-io``, its stored arrays and event
 logs held bitwise against the library job, and a rerun that resumes.
+Phase 8 runs the paths sharded over repeated executors, phase 9 the
+fault layer.  Phase 10 serves five full-width tenants through one
+``repro_torch.serve.SoundscapeService`` (set-1 main twice into stores,
+set-1 detection into a Zarr group under ``.instrument(...)``, set-2
+detection into a NetCDF file, a set-1 ``LiveSource`` stream fed by a
+producer thread), each bitwise equal to its job run alone, then a
+background-mode drain, a tenant healed after an injected stall, the
+device memory after the services are dropped, and ``python -m
+repro_torch.launch.serve --verify`` (stores and Zarr).
 
 Launch counters, set to 0 before each path and read after it, show
-which kernels each path went through.  Any failed check raises, so the
+which kernels each path went through (the service drain's counts are
+``service_launches``).  Any failed check raises, so the
 script exits non-zero and never prints the ``ok`` line.
 
 Output, in order: the card (``nvidia-smi`` name and power limit), the
@@ -403,6 +413,302 @@ def k6_traces(seed, n_rec, n_frames, tile, chunk,
         if i % 4 == 2:
             row[0] = thr
     return spl, pb
+
+
+def guard_steps(stepper, torch):
+    """Run every ``step_once`` of ``stepper`` after its first under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing call
+    inside a tenant's steady-state step raises and fails its run."""
+    inner = stepper.step_once
+    first = [True]
+
+    def step_once():
+        if first[0]:
+            first[0] = False
+            return inner()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    stepper.step_once = step_once
+
+
+def chip_service(torch):
+    """A ``SoundscapeService`` that guards each tenant's steps
+    (``guard_steps``), counts its idle turns, and records when each
+    tenant finished or was parked (``time.perf_counter``)."""
+    from repro_torch.serve import SoundscapeService
+
+    class ChipService(SoundscapeService):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.idle_turns = 0
+            self.done_at: dict[str, float] = {}
+            self.parked_at: dict[str, float] = {}
+
+        def step(self):
+            state = super().step()
+            if state == "idle":
+                self.idle_turns += 1
+            return state
+
+        def _run_quantum(self, tenant):
+            if not getattr(tenant.stepper, "_guarded", False):
+                guard_steps(tenant.stepper, torch)
+                tenant.stepper._guarded = True
+            ran = super()._run_quantum(tenant)
+            now = time.perf_counter()
+            if tenant.state == "done":
+                self.done_at.setdefault(tenant.name, now)
+            elif tenant.state == "parked":
+                self.parked_at.setdefault(tenant.name, now)
+            return ran
+
+    return ChipService
+
+
+def phase10(api, np, torch, sets, wavs, counters, build, detect, all_equal,
+            logs_equal, main_results, det_results, expected, det_expected,
+            decoded, smi):
+    """Phase 10: five full-width tenants through one SoundscapeService on
+    the card (DeficitRoundRobin, weights 1, 1, 2, 1, 1, quantum 2), each
+    held bitwise against its job run alone; a background-mode drain; a
+    healed tenant; the device memory after the service is gone; and the
+    serve CLI with ``--verify``.  Returns the drain's launches per
+    kernel (counters set to 0 just before it, read just after)."""
+    import dataclasses
+    import gc
+
+    from scipy.io import netcdf_file
+    from repro_torch.faults import FaultPlan, FaultSpec
+    from repro_torch.faults.errors import StreamStall
+    from repro_torch.serve import DeficitRoundRobin, LiveSource, RestartPolicy
+
+    ChipService = chip_service(torch)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    d = Path(tmp.name)
+    p1, m1, pcm1, scales1 = sets["set1"]
+    p2, m2 = sets["set2"][:2]
+    inst = api.Instrument(-170.0, gain_db=12.0, vpp=2.0)
+    # the detection tenant's file starts at 2010-06-03T12:00:00Z, so its
+    # labeled outputs carry UTC coordinates and a committed watermark
+    m1_utc = dataclasses.replace(m1, file_starts=(1275566400.0,))
+    live_recs = decoded(pcm1, scales1, np.arange(m1.n_records))
+    live = LiveSource(record_size=p1.record_size, capacity=16)
+    fetch_timeout = live.fetch_timeout
+    zarr_path, nc_path = str(d / "det-s1.zarr"), str(d / "det-s2.nc")
+
+    def main_s1(store):
+        return build("set1", "float32", store=store).async_io()
+
+    def det_s1(src):
+        return (detection_job(api, "set1", p1, m1_utc, wavs["set1"],
+                              "float32").source(src))
+
+    def live_job(src):
+        return (api.job(m1, p1).features("welch", "spl", "tol").chunk(8)
+                .source(src).device("cuda"))
+
+    zarr_sink = api.ZarrSink(zarr_path, chunk_records=8)
+    tenants = {
+        "main-s1": (main_s1(str(d / "main-s1")), 1.0),
+        "main-s1-twin": (main_s1(str(d / "main-s1-twin")), 1.0),
+        "det-s1-zarr": (det_s1(api.WavSource(wavs["set1"]))
+                        .instrument(inst).to(zarr_sink), 2.0),
+        "det-s2-nc": (detect("set2", "float32")
+                      .to(api.NetCDFSink(nc_path)), 1.0),
+        "live-s1": (live_job(live), 1.0)}
+    records = {"main-s1": m1.n_records, "main-s1-twin": m1.n_records,
+               "det-s1-zarr": m1.n_records, "det-s2-nc": m2.n_records,
+               "live-s1": m1.n_records}
+    audio_s = {k: n * (p2 if k == "det-s2-nc" else p1).record_size_sec
+               for k, n in records.items()}
+    svc = ChipService(scheduler=DeficitRoundRobin(), quantum=2)
+    handles = {name: j.submit(svc, name=name, weight=w)
+               for name, (j, w) in tenants.items()}
+
+    def produce():
+        for i in range(0, len(live_recs), 3):     # pushes of 3 records
+            live.push(live_recs[i:i + 3])
+        live.end()
+
+    for c in counters.values():
+        c.reset()
+    producer = threading.Thread(target=produce, name="live-s1-producer")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        producer.start()
+        svc.run(timeout=600)
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t0
+        producer.join()
+    seen = {c: counters[c].count for c in counters}
+    path_kernels = expected["set1"] | det_expected["set1"] \
+        | det_expected["set2"]
+    for c, n in seen.items():
+        check((n > 0) == (c in path_kernels),
+              f"service drain launched {c} {n} times")
+    print(f"service drain launches: {seen}")
+    results = {name: h.result() for name, h in handles.items()}
+    for name, h in handles.items():
+        wall = svc.done_at[name] - t0
+        st = np.asarray(h.step_seconds) * 1e3
+        print(f"tenant {name}: result after {wall:.3f} s, {h.steps_run} "
+              f"steps, {records[name] / wall:.2f} records/s, "
+              f"{audio_s[name] / wall:.1f} x realtime; host enqueue "
+              f"latency per step (step_seconds, not device time) p50 "
+              f"{np.percentile(st, 50):.2f} ms, p95 "
+              f"{np.percentile(st, 95):.2f} ms ({smi})")
+    total = sum(records.values())
+    print(f"service drain: {len(handles)} tenants, {total} records in "
+          f"{drain_s:.3f} s, {total / drain_s:.2f} records/s, "
+          f"{sum(audio_s.values()) / drain_s:.1f} x realtime ({smi})")
+    stats = svc.stats()
+    host = torch.cuda.host_memory_stats() \
+        if hasattr(torch.cuda, "host_memory_stats") else {}
+    pinned = {k: v for k, v in host.items() if "bytes" in k}
+    print(f"service compile cache {json.dumps(stats['compile'])}; idle "
+          f"turns {svc.idle_turns} of {len(svc.trace) + svc.idle_turns}; "
+          f"pinned host memory {json.dumps(pinned)}")
+    check(stats["compile"]["step"] == {"hits": 1, "misses": 4,
+                                       "entries": 4},
+          f"compile cache step stats {stats['compile']['step']}: the "
+          f"twins must share one step")
+
+    # every tenant against its job run alone (same chunk, no shards)
+    solo_live = live_job(api.ReaderSource(
+        lambda idx: live_recs[np.asarray(idx) % len(live_recs)])).run()
+    solo_det1 = det_s1(api.WavSource(wavs["set1"], calibration=inst)).run()
+    solos = {"main-s1": main_results["set1"],
+             "main-s1-twin": main_results["set1"],
+             "det-s1-zarr": solo_det1, "det-s2-nc": det_results["set2"],
+             "live-s1": solo_live}
+    for name, want in solos.items():
+        got = results[name]
+        ok = all_equal(got, want) and (want.events is None
+                                       or logs_equal(got, want))
+        check(ok, f"tenant {name} != its solo run bitwise")
+    check(results["det-s1-zarr"].events["events"].n_events > 0,
+          "det-s1-zarr detected no event")
+
+    def same(a, b):
+        return np.array_equal(np.asarray(a), np.asarray(b), equal_nan=True)
+
+    def tables_equal(read, want):
+        ok = True
+        for ev, cols in (("events", api.EVENT_COLUMNS),
+                         ("impulsive", api.IMPULSIVE_COLUMNS)):
+            log = want.events[ev]
+            ok &= same(read(f"{ev}_counts"), log.counts)
+            for i, col in enumerate(cols):
+                ok &= same(read(f"{ev}_{col}"), log.rows[:, i])
+        return ok and same(read("percentiles"), want["percentiles"]) \
+            and same(read("spd"), want["spd"])
+
+    check(tables_equal(
+        lambda k: api.read_zarr_array(f"{zarr_path}/{k}"), solo_det1),
+        "det-s1-zarr read back != solo arrays")
+    with netcdf_file(nc_path, "r", mmap=False) as nc:
+        nc_vars = {k: np.array(v[:]) for k, v in nc.variables.items()}
+    check(tables_equal(nc_vars.__getitem__, det_results["set2"]),
+          "det-s2-nc read back != solo arrays")
+    desc = stats["tenants"]["det-s1-zarr"]["sink"]
+    check("committed_utc" in desc, f"describe() without committed_utc: "
+          f"{desc}")
+    print(f"service: 5 tenants bitwise equal to their solo runs (event "
+          f"logs included; zarr and netcdf read back); det-s1-zarr "
+          f"describe {json.dumps(desc)}")
+    del svc, handles, results, tenants, zarr_sink, live
+
+    # background mode: submit from this thread, block on result()
+    bg = ChipService(quantum=2).start()
+    try:
+        t0 = time.perf_counter()
+        h = main_s1(str(d / "bg")).submit(bg, name="main-s1")
+        res = h.result(timeout=600)
+        bg_s = time.perf_counter() - t0
+    finally:
+        bg.stop()
+    check(all_equal(res, main_results["set1"]),
+          "background-mode main-s1 != run() bitwise")
+    print(f"service background mode: main-s1 result after {bg_s:.3f} s, "
+          f"bitwise equal to run() ({smi})")
+    del bg, h, res
+
+    # a healed tenant: one injected stall, parked, re-admitted
+    class TimedPlan(FaultPlan):
+        """The plan, recording when its stall first fired."""
+        fired_at = None
+
+        def check_read(self, indices):
+            try:
+                super().check_read(indices)
+            except StreamStall:
+                if self.fired_at is None:
+                    self.fired_at = time.perf_counter()
+                raise
+
+    plan = TimedPlan([FaultSpec("live_stall", record=20, times=1)])
+    heal = ChipService(restart=RestartPolicy(restarts=2, base_delay=0.0,
+                                             max_delay=0.0, jitter=0.0))
+    h = (main_s1(str(d / "healed")).inject(plan)
+         .retry(attempts=1, base_delay=0.0, max_delay=0.0, jitter=0.0)
+         .submit(heal, name="healed"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        heal.run(timeout=600)
+    res = h.result()
+    check(h.restarts == 1, f"healed tenant restarts {h.restarts} != 1")
+    check(all_equal(res, main_results["set1"]),
+          "healed tenant != main-s1 bitwise")
+    park_s = heal.parked_at["healed"] - plan.fired_at
+    print(f"service healed tenant: injected stall at record 20, parked "
+          f"{park_s * 1e3:.2f} ms after the stall fired (a live fetch "
+          f"waits fetch_timeout = {fetch_timeout:g} s before its stall), "
+          f"1 restart, bitwise equal to main-s1 ({smi})")
+    del heal, h, res, plan
+
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    check(mem_after == mem_before,
+          f"device memory {mem_after} B after the services, {mem_before} "
+          f"B before")
+    print(f"service: device memory back to {mem_after} B after the "
+          f"services and handles were dropped")
+
+    # the serve CLI, store and zarr, each --verify
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for extra in ([], ["--sink-format", "zarr", "--out-root",
+                       str(d / "cli-zarr")]):
+        args = [sys.executable, "-m", "repro_torch.launch.serve",
+                "--tenants", "3", "--live", "1", "--files", "1",
+                "--records-per-file", "45", "--record-sec", "60",
+                "--chunk", "8", "--verify", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(args, env=env, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"serve CLI {extra} exited {proc.returncode}: "
+              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        verified = proc.stdout.count("bitwise-identical")
+        check(verified == 4, f"serve CLI {extra}: {verified} of 4 tenants "
+              f"verified: {proc.stdout[-2000:]}")
+        drained = next(ln for ln in proc.stdout.splitlines()
+                       if ln.startswith("[serve] drained"))
+        print(f"serve CLI {' '.join(extra) or 'store'}: process wall "
+              f"{wall:.1f} s; {drained!r}; 4 tenants bitwise-identical "
+              f"({smi})")
+    tmp.cleanup()
+    return seen
 
 
 def main() -> int:
@@ -1492,8 +1798,15 @@ def main() -> int:
           f"({smi}): {med['plain']:.4f} s without, {med['retry']:.4f} "
           f"s with ({med['retry'] / med['plain'] - 1:+.2%}); walls "
           f"{json.dumps(walls)}; not gated")
-    wav_tmp.cleanup()
     phase_done("9")
+
+    # -- phase 10: the multi-tenant service over the card --------------------
+    service_launches = phase10(
+        api, np, torch, sets, wavs, counters, build, detect, all_equal,
+        logs_equal, main_results, det_results, expected, det_expected,
+        decoded, smi)
+    wav_tmp.cleanup()
+    phase_done("10")
 
     p, m = sets["set1"][:2]
     torch.cuda.synchronize()
@@ -1513,6 +1826,7 @@ def main() -> int:
     for r in report:
         r["launches"] = launches[r["name"]]
         r["sharded_launches"] = sharded_launches[r["name"]]
+        r["service_launches"] = service_launches[r["name"]]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,11 @@ Three axes compose freely:
     callback (:class:`ReaderSource`) or a wav directory
     (:class:`WavSource`), float32 or raw int16 PCM;
   * **sinks** — in-memory (:class:`MemorySink`), the resumable feature
-    store (:class:`StoreSink`), or a streaming callback
-    (:class:`CallbackSink`); ragged outputs arrive as
-    :class:`EventLog` values.
+    store (:class:`StoreSink`), a streaming callback
+    (:class:`CallbackSink`), or labeled, resumable Zarr / NetCDF
+    outputs (:class:`ZarrSink`, :class:`NetCDFSink`, with time and
+    frequency coordinates and the ``.instrument(...)`` provenance);
+    ragged outputs arrive as :class:`EventLog` values.
 
 Execution is synchronous by default; ``.async_io(depth=2)`` switches to
 the pipelined executor (:class:`ExecOptions`) — host reads prefetched
@@ -26,6 +28,8 @@ copies on their own CUDA streams through pinned buffers, up to
 (``repro_torch.launch.mesh``), with the same bits at every executor
 count dividing L.  ``.retry()``, ``.tolerate(bad_records=N)`` and
 ``.inject(FaultPlan)`` add the fault layer (``repro_torch.faults``).
+``.submit(service)`` hands the job to a multi-tenant
+``repro_torch.serve.SoundscapeService`` instead of running it inline.
 
 ::
 
@@ -53,6 +57,7 @@ from repro_torch.meta import (Instrument, TimestampParseError, format_utc,
                               parse_timestamp, timestamps_for)
 from .sinks import (AsyncSink, CallbackSink, EventLog, MemorySink, Sink,
                     StoreSink, as_sink)
+from .formats import NetCDFSink, ZarrSink, read_zarr_array
 from .job import JobResult, SoundscapeJob, job
 from repro_torch.faults import FaultPlan, FaultSpec, RetryPolicy
 
@@ -68,6 +73,7 @@ __all__ = [
     "as_source", "scan_dataset",
     "Sink", "MemorySink", "StoreSink", "CallbackSink", "AsyncSink",
     "EventLog", "as_sink",
+    "ZarrSink", "NetCDFSink", "read_zarr_array",
     "Instrument", "TimestampParseError", "format_utc",
     "parse_timestamp", "timestamps_for",
     "SoundscapeJob", "JobResult", "job",

@@ -548,15 +548,31 @@ class _DeviceToHost:
 
 
 class JobStepper:
-    """One job as a resumable sequence of steps.
+    """One job as a resumable sequence of bounded step quanta.
+
+    This is the schedulable unit of the serving layer: ``run_job`` (and
+    ``SoundscapeJob.run``) execute ``start -> step_once* -> finish ->
+    close`` back to back, while a :class:`~repro_torch.serve.
+    SoundscapeService` interleaves ``step_once`` calls of many steppers
+    over one device.  All per-job state (the carry on the device, the
+    in-flight queue, the pinned staging slots and copy streams, the
+    source stream and the window-flush watermarks) lives on the
+    instance, so pausing a stepper between steps changes no bit.  A
+    stepper starts and steps on ONE thread: the copy streams order
+    themselves against that thread's current stream.
 
     ``start()`` binds the source, builds the step, opens the sink and
     restores committed state; ``step_once()`` dispatches one plan step
     and drains the oldest in-flight steps past ``options.inflight``
     into the sink (returning False when none remain); ``finish()``
     drains the rest and finalizes windows and epoch aggregates;
-    ``close()`` releases source and sink and must run even when another
-    method raised.
+    ``close()`` releases source, sink and the device-side state (carry,
+    staging slots, streams) and must run even when another method
+    raised.  ``poll()`` is the non-blocking readiness probe the
+    scheduler uses to skip tenants whose live source has no data yet;
+    a live source whose stream ended (``Source.stream_end``) masks the
+    records it will never deliver, and the job finishes over what
+    arrived.
 
     Under a mesh (``mesh``/``data_axes``, see ``launch.mesh``) the step
     runs on ``D`` executors, one ``torch.device`` each (repeats
@@ -579,6 +595,9 @@ class JobStepper:
     ``ResilientSource`` that fills it) is the job's bad-record set:
     quarantined records are masked out of the step after their payload
     is fetched, and the set rides every commit.  None is strict mode.
+    ``instrument`` (``meta.Instrument`` or None) is the calibration
+    provenance, handed to the sink before ``open``: resumable sinks
+    commit it with the cursor, labeled sinks stamp it on their attrs.
 
     ``host_seconds`` accumulates the driver thread's wall time per phase
     of a step: ``fetch`` (waiting for the source's payload), ``h2d``
@@ -598,9 +617,10 @@ class JobStepper:
                  compiler: Compiler | None = None,
                  device: torch.device = torch.device("cuda"),
                  mesh=None, data_axes: tuple[str, ...] = ("data",),
-                 quarantine=None):
+                 quarantine=None, instrument=None):
         self.m = m
         self.p = p
+        self.instrument = instrument
         self.specs = tuple(specs)
         self.source = source
         self.sink = sink
@@ -622,7 +642,10 @@ class JobStepper:
         self._started = False
         self._closed = False
         self._result = None
+        self._exhausted = False      # live stream ended before the plan
         self._stream = None
+        self._h2d: list = []
+        self._d2h = None
         self._inflight: collections.deque = collections.deque()
         self._windows_out: dict[str, np.ndarray] = {}
         self._overflowed = False     # event-capacity warning fired once
@@ -668,11 +691,16 @@ class JobStepper:
         self._step_fns = [step_fns[dev] for dev in self.executors]
         self._agg_fn = self.compiler.reduce(bindings)
 
+        self.sink.set_instrument(self.instrument)
         self.sink.open(m, p, self._shapes, pl_)
         if self._windowed:
             self.sink.open_windows({
                 b.out_name: (b.n_windows,) + tuple(b.red.out_shape(m, p))
                 for b in self._windowed})
+            # labeled sinks derive per-window time coordinates from
+            # these record-offset edges (manifest.record_times)
+            self.sink.open_window_edges(
+                {name: e.copy() for name, e in self._edges.items()})
         if self._ragged:
             # capacity is a params knob, so every ragged feature of a
             # job shares p.event_capacity
@@ -721,11 +749,54 @@ class JobStepper:
         return self
 
     @property
+    def step(self) -> int:
+        """The next plan step to dispatch."""
+        return self._step if self._started else 0
+
+    @property
+    def n_steps(self) -> int:
+        return self._n_steps if self._started else self.pl.n_steps
+
+    @property
+    def records_done(self) -> int:
+        """Records covered by already-dispatched steps."""
+        if not self._started or self._step == 0:
+            return 0
+        return self.pl.committed_records(self._step - 1)
+
+    @property
     def done(self) -> bool:
         return self._started and (self._result is not None
+                                  or self._exhausted
                                   or self._step >= self._n_steps)
 
-    def _fetch(self, step: int, idx: np.ndarray) -> tuple:
+    def _live_mask(self, idx: np.ndarray) -> np.ndarray:
+        """The step's live mask, also excluding the records a finite
+        (ended) live stream will never deliver.  For every other source
+        ``stream_end()`` is None and the plan mask passes through
+        untouched."""
+        mask = self.pl.step_mask(self._step)
+        end = self.source.stream_end()
+        if end is not None:
+            mask = mask & (idx < end)
+        return mask
+
+    def poll(self) -> str:
+        """Non-blocking readiness: ``"ready"`` (step_once will not block
+        on the source), ``"pending"`` (a live source still waiting for
+        data), or ``"done"`` (no steps left — the plan is finished or
+        the live stream ended)."""
+        if not self._started:
+            return "ready"          # start() is the next unit of work
+        if self.done:
+            return "done"
+        idx = self.pl.step_indices(self._step)
+        mask = self._live_mask(idx)
+        if not mask.any() and self.source.stream_end() is not None:
+            return "done"
+        return self.source.poll(idx[mask])
+
+    def _fetch(self, idx: np.ndarray, mask: np.ndarray) -> tuple:
         """The step's host inputs: payload and int16 decode scales (None
         for device synthesis) and the live mask.  The payload is fetched
         BEFORE the mask is frozen: a tolerant source may quarantine
@@ -746,7 +817,6 @@ class JobStepper:
                 scales = np.asarray(self.source.scales(idx), np.float32)
             else:
                 payload = payload.astype(np.float32, copy=False)
-        mask = self.pl.step_mask(step)
         if self.quarantine is not None and len(self.quarantine):
             mask = mask & ~self.quarantine.mask_for(idx)
         return payload, scales, mask
@@ -761,9 +831,15 @@ class JobStepper:
         clock = time.perf_counter
         step = self._step
         idx = self.pl.step_indices(step)
+        mask = self._live_mask(idx)
+        if not mask.any() and self.source.stream_end() is not None:
+            # graceful end of stream: every remaining plan record lies
+            # beyond what the live source will ever deliver
+            self._exhausted = True
+            return False
         segments, rows = _window_rows(
             {k: w.ids(idx, self.m) for k, w in self._wins.items()})
-        payload, scales, mask = self._fetch(step, idx)
+        payload, scales, mask = self._fetch(idx, mask)
         n_dev = len(self.executors)
         blocks = {k: partition_lib.split_rows(v, n_dev) for k, v in
                   (("mask", mask), ("payload", payload), ("scales", scales),
@@ -932,10 +1008,16 @@ class JobStepper:
 
     def close(self):
         """Release stream, source and sink — all three, always; the first
-        error re-raises after all three ran."""
+        error re-raises after all three ran.  The device-side state (the
+        carry, in-flight steps, pinned staging slots and copy streams)
+        is dropped too, so a closed stepper a long-lived service still
+        holds keeps no device or pinned memory."""
         if self._closed:
             return
         self._closed = True
+        self._inflight.clear()
+        self._h2d, self._d2h = [], None
+        self._agg_state = self._step_fns = self._agg_fn = None
         first: BaseException | None = None
         for release in ((self._stream.close if self._stream is not None
                          else None),
@@ -955,14 +1037,15 @@ def run_job(m: DatasetManifest, p: DepamParams, specs: list[FeatureSpec],
             max_steps: int | None, options: ExecOptions | None = None,
             window: Window | None = None,
             device: torch.device = torch.device("cuda"), mesh=None,
-            data_axes: tuple[str, ...] = ("data",), quarantine=None):
+            data_axes: tuple[str, ...] = ("data",), quarantine=None,
+            instrument=None):
     """Drive the job over plan ``pl_`` to completion; resumable when the
     sink is.  Returns (features, epoch, windows, window_edges,
     n_records, events, plan, quarantine)."""
     return drive(JobStepper(m, p, specs, source, sink, pl_, use_kernels,
                             max_steps, options, window, device=device,
                             mesh=mesh, data_axes=data_axes,
-                            quarantine=quarantine))
+                            quarantine=quarantine, instrument=instrument))
 
 
 def drive(stepper: JobStepper):

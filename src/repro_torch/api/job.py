@@ -17,8 +17,9 @@
                  .events(60.0, impulsive=True)  # optional: detection
                  .retry(attempts=3)   # optional: bounded retry at IO
                  .tolerate(bad_records=2)  # optional: quarantine
+                 .instrument(inst)    # optional: calibration chain
                  .device("cuda")      # the default; "cpu" opts out
-                 .run())
+                 .run())              # or .submit(service)
 
 Every setter returns the job; ``run()`` validates the configuration
 (incompatible source/knob combinations raise a ValueError naming the
@@ -30,6 +31,7 @@ default raises instead of falling back.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -42,10 +44,41 @@ from repro_torch.distributed.partition import (build_partition,
                                                shard_sharding)
 from repro_torch.faults.plan import FaultPlan
 from repro_torch.faults.retry import Retrier, RetryPolicy
+from repro_torch.meta.instrument import Instrument
 from . import engine
 from .features import EPOCH_WINDOW, FeatureSpec, Window, resolve_features
 from .sinks import AsyncSink, Sink, StoreSink, as_sink
-from .sources import PrefetchSource, Source, as_source
+from .sources import PrefetchSource, Source, WavSource, as_source
+
+
+def _calibrated(source: Source, instrument: Instrument) -> Source:
+    """Derive the per-file calibration gain of a wav-fed source from the
+    instrument model (copy, never mutate — sources are reusable).
+
+    Only wav sources have a calibration seam; an instrument on a
+    synthesized or raw-callback source would silently do nothing, so it
+    is refused by name instead.
+    """
+    if isinstance(source, WavSource):
+        if source.calibration is not None:
+            raise ValueError(
+                ".instrument(...) conflicts with the explicit "
+                "calibration already set on the WavSource — the gain "
+                "must have exactly one source of truth; drop one of "
+                "the two")
+        new = copy.copy(source)
+        new.calibration = instrument    # wavio derives the linear gain
+        new._reader = None              # bind() attaches a fresh reader
+        return new
+    if isinstance(source, PrefetchSource):
+        new = copy.copy(source)
+        new.inner = _calibrated(source.inner, instrument)
+        return new
+    raise ValueError(
+        f".instrument(...) needs a wav-fed source to apply its "
+        f"calibration gain to, got {type(source).__name__}; feed the "
+        f"job from a wav directory (.source(path)) or drop the "
+        f"instrument")
 
 
 @dataclasses.dataclass
@@ -122,6 +155,7 @@ class SoundscapeJob:
         self._fault_plan: FaultPlan | None = None
         self._retry: RetryPolicy | None = None
         self._tolerate: int | None = None
+        self._instrument: Instrument | None = None
 
     def features(self, *feats: str | FeatureSpec) -> "SoundscapeJob":
         """Select registered feature names and/or inline FeatureSpecs."""
@@ -165,6 +199,22 @@ class SoundscapeJob:
         """Where results go: Sink, FeatureStore, store path, or a
         streaming callback ``fn(step, indices, values)``."""
         self._sink = sink
+        return self
+
+    def instrument(self, inst: Instrument | None) -> "SoundscapeJob":
+        """Calibrate the job with a recording-chain model
+        (:class:`repro_torch.meta.Instrument`): the wav source's
+        per-file gain is *derived* from hydrophone sensitivity + preamp
+        gain + ADC peak voltage (the pypam/pyhydrophone model),
+        resumable sinks commit the instrument next to the cursor (a
+        resumed run under a changed calibration refuses loudly), and
+        labeled sinks stamp it on the output attrs.  None removes a
+        previously-set instrument."""
+        if inst is not None and not isinstance(inst, Instrument):
+            raise TypeError(
+                f".instrument(...) takes a repro_torch.meta.Instrument "
+                f"or None, got {type(inst).__name__}")
+        self._instrument = inst
         return self
 
     def chunk(self, records: int) -> "SoundscapeJob":
@@ -381,16 +431,23 @@ class SoundscapeJob:
                         f"per-record feature of the same name — rename "
                         f"the reduction output")
 
-    def _stepper(self) -> engine.JobStepper:
+    def _stepper(self, compiler=None,
+                 name: str | None = None) -> engine.JobStepper:
         """Validate, wrap source and sink per the executor and fault
         options, and build the resumable stepper this configuration
-        describes."""
+        describes.  ``run()`` drives it to completion inline; a
+        :class:`~repro_torch.serve.SoundscapeService` drives it in
+        bounded quanta beside other tenants, passing its shared compile
+        cache as ``compiler`` and the tenant's ``name`` (which names the
+        AsyncSink writer thread)."""
         devs = self._executors()
         device = devs[0] if devs is not None \
             else resolve_device(self._device or "cuda")
         pl_ = self._plan()
         specs = resolve_features(self._features)
         source: Source = as_source(self._source)
+        if self._instrument is not None:
+            source = _calibrated(source, self._instrument)
         self._validate(specs, source)
         if self._payload_dtype is not None:
             source = source.with_payload(self._payload_dtype)
@@ -432,12 +489,14 @@ class SoundscapeJob:
                 sink = FaultySink(sink, self._fault_plan)
             sink = ResilientSink(sink, retrier)
         if self._exec.inflight > 0 and not isinstance(sink, AsyncSink):
-            sink = AsyncSink(sink, queue_size=self._exec.queue_size)
+            sink = AsyncSink(sink, queue_size=self._exec.queue_size,
+                             name=name)
         return engine.JobStepper(
             self._m, self._p, specs, source, sink, pl_,
             self._use_kernels, self._max_steps, self._exec,
-            window=self._window, device=device, mesh=self._mesh,
-            data_axes=self._data_axes, quarantine=quarantine)
+            window=self._window, compiler=compiler, device=device,
+            mesh=self._mesh, data_axes=self._data_axes,
+            quarantine=quarantine, instrument=self._instrument)
 
     def run(self) -> JobResult:
         features, epoch, windows, edges, n_records, events, pl_, quar = \
@@ -445,6 +504,18 @@ class SoundscapeJob:
         return JobResult(features=features, epoch=epoch, windows=windows,
                          window_edges=edges, n_records=n_records,
                          events=events, plan=pl_, quarantine=quar)
+
+    def submit(self, service, *, name: str | None = None,
+               weight: float = 1.0, quantum: int | None = None):
+        """Submit this job to a
+        :class:`~repro_torch.serve.SoundscapeService` instead of driving
+        it inline: the service schedules it in bounded step quanta
+        beside other tenants over one device, sharing step functions
+        with same-config tenants.  Returns the service's
+        :class:`~repro_torch.serve.TenantHandle`; ``handle.result()``
+        is this job's :class:`JobResult`."""
+        return service.submit(self, name=name, weight=weight,
+                              quantum=quantum)
 
 
 def job(manifest: DatasetManifest, params: DepamParams) -> SoundscapeJob:

@@ -130,6 +130,25 @@ class Sink:
              shapes: dict[str, tuple[int, ...]], plan: ShardPlan) -> None:
         pass
 
+    def set_instrument(self, instrument) -> None:
+        """Calibration provenance (:class:`repro_torch.meta.Instrument`
+        or None), delivered by the engine BEFORE ``open``.  Resumable
+        sinks commit it with the cursor and refuse to resume under a
+        changed calibration; labeled sinks additionally stamp it on
+        output attrs.  Default: ignore."""
+
+    def open_window_edges(self, edges: dict[str, np.ndarray]) -> None:
+        """Per-output window edges ``{output: (n_windows + 1,) record
+        offsets}``, delivered right after ``open_windows`` — the raw
+        material labeled sinks turn into window time coordinates via
+        ``manifest.record_times``.  Default: ignore."""
+
+    def describe(self) -> dict:
+        """Small JSON-safe description of where this sink's output
+        lives (path, committed high-watermark...), surfaced by the
+        serving layer's ``stats()``.  Default: empty."""
+        return {}
+
     def resume_state(self):
         """(start_step, (agg, live) | None) — only resumable sinks skip."""
         return 0, None
@@ -256,6 +275,14 @@ class StoreSink(Sink):
         self._plan: ShardPlan | None = None
         self._n_records = 0
         self._event_meta: dict[str, tuple[tuple[str, ...], int]] = {}
+
+    def set_instrument(self, instrument):
+        # the store refuses a calibration that differs from the one its
+        # committed cursor was written under
+        self.store.set_instrument(instrument)
+
+    def describe(self):
+        return {"format": "store", "path": self.store.root}
 
     def open(self, m, p, shapes, plan):
         self._plan = plan
@@ -455,6 +482,9 @@ class AsyncSink(Sink):
             raise RuntimeError("AsyncSink worker failed") from self._error
 
     # -- synchronous control plane --------------------------------------
+    def set_instrument(self, instrument):
+        self.inner.set_instrument(instrument)
+
     def open(self, m, p, shapes, plan):
         self.inner.open(m, p, shapes, plan)
         self._killed = False
@@ -464,8 +494,14 @@ class AsyncSink(Sink):
     def open_windows(self, shapes):
         self.inner.open_windows(shapes)
 
+    def open_window_edges(self, edges):
+        self.inner.open_window_edges(edges)
+
     def open_events(self, layouts):
         self.inner.open_events(layouts)
+
+    def describe(self):
+        return self.inner.describe()
 
     def resume_state(self):
         return self.inner.resume_state()

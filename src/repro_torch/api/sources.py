@@ -129,6 +129,23 @@ class Source:
         for step in range(start, stop):
             yield self.fetch(plan.step_indices(step))
 
+    def poll(self, indices: np.ndarray) -> str:
+        """Non-blocking readiness probe for ``fetch(indices)``:
+        ``"ready"`` (a fetch would return without blocking) or
+        ``"pending"`` (data not yet available — a live stream still
+        filling).  Batch/file sources are always ready; the scheduler
+        uses this to skip starved live tenants instead of blocking the
+        whole service on one tenant's ``fetch``."""
+        return "ready"
+
+    def stream_end(self) -> int | None:
+        """One past the last record this source will ever deliver, or
+        None for sources that cover the whole manifest (every batch
+        source).  A finite value — a :class:`~repro_torch.serve.LiveSource`
+        whose feeder signalled end-of-stream — lets the engine mask out
+        never-arriving records and finish the job gracefully."""
+        return None
+
     def close(self) -> None:
         """Release IO resources; called by the engine when the job ends.
         Safe to call twice."""
@@ -348,6 +365,12 @@ class PrefetchSource(Source):
 
     def scales(self, indices: np.ndarray) -> np.ndarray:
         return self.inner.scales(indices)
+
+    def poll(self, indices: np.ndarray) -> str:
+        return self.inner.poll(indices)
+
+    def stream_end(self) -> int | None:
+        return self.inner.stream_end()
 
     def close(self) -> None:
         self.inner.close()

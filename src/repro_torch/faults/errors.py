@@ -34,11 +34,10 @@ Classes
     truncated-read ValueError keep working.
 ``StreamStall``
     A live source's producer starved a blocking fetch.  Subclasses
-    ``TimeoutError`` (the pre-classification type) and is retryable at
-    the tenant level: a serving layer parks the tenant and re-admits
-    it, instead of the stall killing the tenant outright.  The port
-    has no live source yet; the class is here so the taxonomy is
-    whole.
+    ``TimeoutError`` (the pre-classification type) and is *retryable at
+    the tenant level*: the service parks the tenant and the
+    :class:`~repro_torch.serve.restart.RestartPolicy` re-admits it,
+    instead of the stall killing the tenant outright.
 ``RetryExhausted``
     The bounded retry budget ran out; chains the last transient error.
     Deliberately NOT transient itself — budgets do not nest.

@@ -144,6 +144,12 @@ class _DelegatingSource(Source):
     def scales(self, indices):
         return self.inner.scales(indices)
 
+    def poll(self, indices):
+        return self.inner.poll(indices)
+
+    def stream_end(self):
+        return self.inner.stream_end()
+
     def close(self):
         self.inner.close()
 
@@ -225,14 +231,23 @@ class _DelegatingSink(Sink):
         self.resumable = inner.resumable
         self.wants_commit = inner.wants_commit
 
+    def set_instrument(self, instrument):
+        self.inner.set_instrument(instrument)
+
     def open(self, m, p, shapes, plan):
         self.inner.open(m, p, shapes, plan)
 
     def open_windows(self, shapes):
         self.inner.open_windows(shapes)
 
+    def open_window_edges(self, edges):
+        self.inner.open_window_edges(edges)
+
     def open_events(self, layouts):
         self.inner.open_events(layouts)
+
+    def describe(self):
+        return self.inner.describe()
 
     def resume_state(self):
         return self.inner.resume_state()

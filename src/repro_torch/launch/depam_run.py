@@ -12,14 +12,25 @@ submitting the Spark job of the paper:
       [--data-root /path/to/real/wavs] [--prefetch-depth 2] [--sync-io] \
       [--payload int16] [--events [--event-threshold-db DB]] \
       [--shards L] [--data-parallel N] \
+      [--to store|zarr|netcdf] [--instrument SENS[:GAIN[:VPP]]] \
       [--timestamps auto|none|PATTERN] [--list-features]
 
 The flags, prints, resume behaviour and ``summary.json`` fields are the
 reference launcher's (``python -m repro.launch.depam_run``).  The job
 runs on the CUDA device; ``--device cpu`` runs the plain PyTorch path
-on the CPU instead.  Flags of modules the port does not have yet exit
-non-zero naming the ``ROADMAP.md`` queue item they wait for: ``--to
-zarr|netcdf`` and ``--instrument`` (A5, labeled outputs).
+on the CPU instead.
+
+``--to`` picks the output format: ``store`` (the raw resumable
+FeatureStore, default), ``zarr`` (a labeled, xarray-openable Zarr
+group at ``--out/features.zarr``), or ``netcdf`` (a single labeled
+``--out/features.nc``, materialized atomically when the job
+completes).  All three are resumable and bitwise-identical.
+
+``--instrument SENS[:GAIN[:VPP]]`` declares the recording chain
+(hydrophone sensitivity in dB re 1 V/µPa, preamp gain in dB, ADC
+peak-to-peak volts) for wav-fed jobs: calibration gain is derived
+from it, it lands in the output attrs, and it is committed with the
+resume cursor — resuming under a different instrument is refused.
 
 ``--shards L`` fixes a file-aligned partition of L worker slices;
 ``--data-parallel N`` lays the job over the first N visible CUDA
@@ -93,13 +104,6 @@ from repro_torch.core.store import FeatureStore
 from repro_torch.distributed.partition import build_partition
 from repro_torch.launch.mesh import device_mesh, make_host_mesh
 
-# flags of modules the port does not have yet, with the ROADMAP.md queue
-# item each waits for
-NOT_PORTED = {
-    "--to zarr|netcdf": "A5 (labeled outputs: ZarrSink, NetCDFSink)",
-    "--instrument": "A5 (labeled outputs: .instrument())",
-}
-
 
 def print_feature_list(m, p) -> None:
     """The registry, self-described: one block per feature with its
@@ -135,6 +139,21 @@ def parse_window(arg: str | None):
         raise SystemExit(
             f"--window must be an integer record count, 'per-file', or "
             f"'epoch', got {arg!r}")
+
+
+def parse_instrument(arg: str):
+    """``--instrument SENS[:GAIN[:VPP]]`` -> :class:`api.Instrument`."""
+    parts = arg.split(":")
+    if not 1 <= len(parts) <= 3:
+        raise SystemExit(
+            f"--instrument takes SENS[:GAIN[:VPP]], got {arg!r}")
+    try:
+        sens = float(parts[0])
+        gain = float(parts[1]) if len(parts) > 1 else 0.0
+        vpp = float(parts[2]) if len(parts) > 2 else 2.0
+        return api.Instrument(sensitivity_db=sens, gain_db=gain, vpp=vpp)
+    except ValueError as e:
+        raise SystemExit(f"--instrument: {e}")
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -230,11 +249,6 @@ def main(argv: list[str] | None = None) -> None:
                          "'none', a strptime pattern, or a regex with "
                          "named groups")
     a = ap.parse_args(argv)
-    for flag, given in (("--to zarr|netcdf", a.fmt != "store"),
-                        ("--instrument", a.instrument is not None)):
-        if given:
-            ap.error(f"{flag} is not ported to repro_torch yet: it waits "
-                     f"for ROADMAP.md queue item {NOT_PORTED[flag]}")
 
     base = PARAM_SET_1 if a.param_set == 1 else PARAM_SET_2
     p = base if a.record_sec is None else dataclasses.replace(
@@ -293,10 +307,27 @@ def main(argv: list[str] | None = None) -> None:
         print(f"[depam] coverage: {coverage['utc_start']} .. "
               f"{coverage['utc_end']} ({gap:.1f} s of gaps)")
 
-    sink = FeatureStore(a.out)
+    if a.fmt == "zarr":
+        sink = api.ZarrSink(f"{a.out}/features.zarr",
+                            chunk_records=a.chunk_records)
+    elif a.fmt == "netcdf":
+        sink = api.NetCDFSink(f"{a.out}/features.nc")
+    else:
+        sink = FeatureStore(a.out)
     j = (api.job(m, p).features(*feats).chunk(a.chunk_records)
          .kernels(not a.no_kernels).to(sink).window(**win_kwargs)
          .device(a.device))
+    if a.instrument is not None:
+        if not (a.data_root or a.wav_dir):
+            ap.error("--instrument needs a wav-fed job "
+                     "(--wav-dir/--data-root); synthesized records "
+                     "carry no recording chain to calibrate")
+        inst = parse_instrument(a.instrument)
+        j = j.instrument(inst)
+        print(f"[depam] instrument: sensitivity "
+              f"{inst.sensitivity_db:g} dB re 1 V/uPa, gain "
+              f"{inst.gain_db:g} dB, vpp {inst.vpp:g} V "
+              f"(linear gain {inst.gain:.6g})")
     if mesh is not None:
         j = j.on(mesh)
         print(f"[depam] mesh: data={a.data_parallel} "
@@ -333,8 +364,10 @@ def main(argv: list[str] | None = None) -> None:
 
     start_step = j.resume_step()
     if start_step > 0:
+        cur = sink.load_cursor() if a.fmt == "store" \
+            else sink.describe().get("committed_records")
         print(f"[depam] resuming at step {start_step} "
-              f"(cursor {sink.load_cursor()['cursor']})")
+              f"(cursor {cur['cursor'] if a.fmt == 'store' else cur})")
 
     t0 = time.time()
     out = j.run()
@@ -367,6 +400,11 @@ def main(argv: list[str] | None = None) -> None:
               f"{out.n_records} records ({int(log.kept.sum())} rows "
               f"kept, capacity {log.capacity}"
               + (f", {n_over} records overflowed)" if n_over else ")"))
+    if a.fmt != "store":
+        d = sink.describe()
+        mark = f", committed through {d['committed_utc']}" \
+            if "committed_utc" in d else ""
+        print(f"[depam] output: {d['format']} at {d['path']}{mark}")
     if done == 0:
         # already complete before this run: keep the recorded numbers
         print("[depam] job was already complete; summary.json untouched")
@@ -381,9 +419,12 @@ def main(argv: list[str] | None = None) -> None:
                     "windows": {k: list(v.shape)
                                 for k, v in sorted(out.windows.items())},
                     "events": ev_json,
-                    "output": {"format": "store", "path": a.out}}
+                    "output": sink.describe() if a.fmt != "store"
+                    else {"format": "store", "path": a.out}}
     if coverage is not None:
         summary_json["coverage"] = coverage
+    if a.instrument is not None:
+        summary_json["instrument"] = inst.to_state()
     with open(f"{a.out}/summary.json", "w") as f:
         json.dump(summary_json, f, indent=1)
 

@@ -4,7 +4,8 @@ stored arrays equal the port's library job bitwise and the reference
 CLI's within tolerance, ``summary.json`` has the reference's keys,
 ``--sync-io`` writes the same bytes as the pipelined default, a second
 run resumes, ``--shards``/``--data-parallel`` store the library's
-sharded bits, and the flags of unported modules are refused loudly."""
+sharded bits, and ``--to zarr|netcdf`` and ``--instrument`` write the
+library job's bits into labeled outputs."""
 import contextlib
 import dataclasses
 import io
@@ -282,17 +283,85 @@ def test_shards_not_divisible_by_data_parallel_exits(tmp_path, capsys):
     assert not (tmp_path / "o").exists()
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--to", "zarr"], "A5"), (["--to", "netcdf"], "A5"),
-    (["--instrument", "-170"], "A5")])
-def test_unported_flags_are_refused(flags, item, tmp_path, capsys):
-    with pytest.raises(SystemExit) as exc:
-        depam_run.main(["--out", str(tmp_path / "o"), "--device", "cpu",
-                        *flags])
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported" in err and item in err
-    assert not (tmp_path / "o").exists()
+@pytest.fixture(scope="module")
+def set1_wavs(tmp_path_factory):
+    p = _params(1)
+    wavs = str(tmp_path_factory.mktemp("labeled") / "wavs")
+    write_dataset(wavs, _manifest(p), gen=_gen(p))
+    return wavs
+
+
+def _labeled(out, fmt):
+    """Dense and windowed arrays, and the event logs as (counts, rows),
+    read back from a run's Zarr group or NetCDF file."""
+    cols = {"events": api.EVENT_COLUMNS, "impulsive": api.IMPULSIVE_COLUMNS}
+    if fmt == "zarr":
+        def read(name):
+            return api.read_zarr_array(f"{out}/features.zarr/{name}")
+    else:
+        from scipy.io import netcdf_file
+        with netcdf_file(f"{out}/features.nc", "r", mmap=False) as nc:
+            data = {k: np.array(v[:]) for k, v in nc.variables.items()}
+            attrs = dict(nc._attributes)
+
+        def read(name):
+            return data[name]
+    got = {k: read(k) for k in DENSE + WINDOWED}
+    for name, c in cols.items():
+        got[name] = (read(f"{name}_counts"),
+                     np.stack([read(f"{name}_{col}") for col in c], axis=1))
+    if fmt == "zarr":
+        with open(f"{out}/features.zarr/.zattrs") as f:
+            attrs = json.load(f)
+    return got, attrs
+
+
+@pytest.mark.parametrize("flags", [
+    ["--to", "zarr"], ["--to", "netcdf"], ["--instrument=-170:12:2"],
+    ["--to", "zarr", "--instrument=-170:12:2"]],
+    ids=["zarr", "netcdf", "instrument", "zarr-instrument"])
+def test_labeled_output_flags_equal_library_job(flags, set1_wavs,
+                                                tmp_path, capsys):
+    """``--to zarr|netcdf`` and ``--instrument`` run on the CPU: the
+    labeled outputs (or, for a store, its arrays) hold the library job's
+    bits, the instrument lands in summary.json and the output attrs."""
+    p, out = _params(1), str(tmp_path / "o")
+    depam_run.main([
+        "--device", "cpu", "--param-set", "1", "--files", str(FILES),
+        "--records-per-file", str(PER_FILE), "--record-sec",
+        str(SETS[1][1]), "--chunk-records", str(CHUNK), "--wav-dir",
+        set1_wavs, "--out", out, "--features", ",".join(FEATURES),
+        "--window", str(WINDOW), "--events",
+        f"--event-threshold-db={THRESHOLD_DB}",
+        f"--event-hysteresis-db={HYSTERESIS_DB}", *flags])
+    log = capsys.readouterr().out
+    inst = api.Instrument(-170.0, gain_db=12.0, vpp=2.0) \
+        if "--instrument=-170:12:2" in flags else None
+    res = (api.job(_manifest(p), p).features(*FEATURES).chunk(CHUNK)
+           .window(records=WINDOW).source(api.WavSource(set1_wavs))
+           .events(THRESHOLD_DB, hysteresis_db=HYSTERESIS_DB,
+                   impulsive=True).instrument(inst).device("cpu").run())
+    fmt = flags[1] if flags[0] == "--to" else "store"
+    with open(f"{out}/summary.json") as f:
+        summary = json.load(f)
+    assert summary["output"]["format"] == fmt
+    if fmt == "store":
+        got, attrs = _stored(out), {}
+    else:
+        got, attrs = _labeled(out, fmt)
+        assert f"[depam] output: {fmt} at " in log
+    for k in DENSE + WINDOWED:
+        assert np.array_equal(got[k], res[k], equal_nan=True), k
+    for k in ("events", "impulsive"):
+        counts, rows = got[k]
+        assert np.array_equal(counts, res.events[k].counts), k
+        assert np.array_equal(rows, res.events[k].rows), k
+    assert res.events["events"].n_events > 0
+    if inst is not None:
+        assert summary["instrument"] == inst.to_state()
+        assert "[depam] instrument: sensitivity -170 dB" in log
+        if fmt == "zarr":
+            assert attrs["instrument_sensitivity_db_re_1V_per_uPa"] == -170
 
 
 def test_default_device_without_cuda_exits_loudly(tmp_path, capsys,

@@ -1,13 +1,17 @@
 """The port's fault layer: the bitwise-or-loud chaos property.
 
-The cases of the reference's ``tests/test_faults.py`` that need neither
-a serving layer nor a live source, on the CPU device: under any
-injected fault schedule, a run either completes bitwise equal to the
-fault-free run, or fails loudly with an error naming the fault.  Beside
-them: ``FaultPlan`` schedules and ``Quarantine`` reports equal to the
-reference's for the same inputs, a store the reference committed with a
-quarantined record resumes in the port, the chaos script at its small
-size, and (on the card) one healed faulted job.
+The cases of the reference's ``tests/test_faults.py``, on the CPU
+device: under any injected fault schedule, a run either completes
+bitwise equal to the fault-free run, or fails loudly with an error
+naming the fault; a service tenant that dies of a transient cause
+(an exhausted retry budget, a starved live stream) is parked and
+re-admitted from its committed cursor under a ``RestartPolicy``, and
+heals bitwise.  Beside them: ``FaultPlan`` schedules and ``Quarantine``
+reports equal to the reference's for the same inputs, a store the
+reference committed with a quarantined record resumes in the port, a
+live stream that ends early under ``.retry()`` finishes as the
+reference's does, the chaos script at its small size, and (on the
+card) one healed faulted job.
 """
 import os
 import subprocess
@@ -39,6 +43,7 @@ from repro_torch.faults.errors import (CorruptRecordError, InjectedCrash,
                                        StreamStall, TransientReadError,
                                        TruncatedRecordError, is_bad_record,
                                        is_retryable)
+from repro_torch.serve import LiveSource, RestartPolicy, SoundscapeService
 
 ROOT = Path(__file__).resolve().parents[1]
 PKW = dict(nfft=256, window_size=256, window_overlap=128,
@@ -465,6 +470,211 @@ class TestStoreCrashMatrix:
 SWEEP = [dict(payload=pl, sync=sync, shards=sh)
          for sh in (1, 2) for pl in ("float32", "int16")
          for sync in (True, False)]
+
+
+# -- service self-healing ----------------------------------------------
+
+def _reader_job(data, store):
+    return (api.job(M, P).features("welch").to(store).device("cpu")
+            .source(api.ReaderSource(
+                lambda idx: data[np.clip(idx, 0, M.n_records - 1)])))
+
+
+@pytest.fixture(scope="module")
+def reader_data():
+    rng = np.random.default_rng(0)
+    return rng.standard_normal((M.n_records, P.record_size)) \
+        .astype(np.float32)
+
+
+def assert_bitwise_welch(got, want):
+    assert np.array_equal(np.asarray(got["welch"]),
+                          np.asarray(want["welch"]))
+    assert np.array_equal(np.asarray(got["mean_welch"]),
+                          np.asarray(want["mean_welch"]))
+
+
+class TestSelfHealing:
+    def test_parked_tenant_heals_bitwise(self, reader_data, tmp_path):
+        ref = _reader_job(reader_data, str(tmp_path / "ref")).run()
+        plan = FaultPlan([FaultSpec("read_transient", record=9,
+                                    times=5)])
+        j = (_reader_job(reader_data, str(tmp_path / "s"))
+             .inject(plan).retry(attempts=2, **FAST))
+        svc = SoundscapeService(
+            restart=RestartPolicy(restarts=3, base_delay=0.0,
+                                  max_delay=0.0, jitter=0.0))
+        h = svc.submit(j, name="t")
+        svc.run(timeout=120)
+        got = h.result()
+        assert h.restarts == 2
+        assert isinstance(h.last_error, RetryExhausted)
+        assert_bitwise_welch(got, ref)
+        st = svc.stats()
+        assert st["restarts"] == 2
+        assert st["tenants"]["t"]["restarts"] == 2
+        assert st["tenants"]["t"]["state"] == "done"
+        # the sink's describe() reaches stats() through the fault layer
+        assert st["tenants"]["t"]["sink"] == {"format": "store",
+                                              "path": str(tmp_path / "s")}
+
+    def test_restart_budget_bounds_the_flapping(self, reader_data,
+                                                tmp_path):
+        plan = FaultPlan([FaultSpec("read_transient", record=1,
+                                    times=None)])
+        j = (_reader_job(reader_data, str(tmp_path / "s"))
+             .inject(plan).retry(attempts=2, **FAST))
+        svc = SoundscapeService(
+            restart=RestartPolicy(restarts=2, base_delay=0.0,
+                                  max_delay=0.0, jitter=0.0))
+        h = svc.submit(j, name="t")
+        svc.run(timeout=120)
+        assert h.state == "failed"
+        assert h.restarts == 2
+        with pytest.raises(RuntimeError, match="failed") as ei:
+            h.result()
+        assert isinstance(ei.value.__cause__, RetryExhausted)
+
+    def test_non_transient_failures_never_restart(self, reader_data,
+                                                  tmp_path):
+        plan = FaultPlan([FaultSpec("record_corrupt", record=1,
+                                    times=None)])
+        j = _reader_job(reader_data, str(tmp_path / "s")).inject(plan)
+        svc = SoundscapeService(
+            restart=RestartPolicy(restarts=3, base_delay=0.0,
+                                  max_delay=0.0, jitter=0.0))
+        h = svc.submit(j, name="t")
+        svc.run(timeout=120)
+        assert h.state == "failed" and h.restarts == 0
+        with pytest.raises(RuntimeError):
+            h.result()
+
+    def test_no_policy_keeps_fail_fast(self, reader_data, tmp_path):
+        plan = FaultPlan([FaultSpec("read_transient", record=1,
+                                    times=None)])
+        j = (_reader_job(reader_data, str(tmp_path / "s"))
+             .inject(plan).retry(attempts=2, **FAST))
+        svc = SoundscapeService()
+        h = svc.submit(j, name="t")
+        svc.run(timeout=120)
+        assert h.state == "failed" and h.restarts == 0
+
+    def test_close_failures_are_chained_not_swallowed(self, reader_data,
+                                                      tmp_path):
+        class LeakySink(api.MemorySink):
+            def close(self):
+                super().close()
+                raise OSError("flush to nfs failed")
+
+        plan = FaultPlan([FaultSpec("record_corrupt", record=1,
+                                    times=None)])
+        j = (api.job(M, P).features("welch").to(LeakySink()).device("cpu")
+             .source(api.ReaderSource(
+                 lambda idx: reader_data[np.clip(idx, 0,
+                                                 M.n_records - 1)]))
+             .inject(plan))
+        svc = SoundscapeService()
+        with pytest.warns(RuntimeWarning, match="failed to close"):
+            h = svc.submit(j, name="t")
+            svc.run(timeout=120)
+        assert h.state == "failed"
+        assert isinstance(h.close_error, OSError)
+        # the secondary failure rides the primary's __context__ chain
+        chain, e = [], h.error
+        while e is not None:
+            chain.append(e)
+            e = e.__context__
+        assert h.close_error in chain
+        assert isinstance(h.error, CorruptRecordError)
+
+    def test_restart_policy_delay_shape(self):
+        pol = RestartPolicy(restarts=3, base_delay=0.1, max_delay=0.3,
+                            jitter=0.0)
+        assert pol.delay(0) == pytest.approx(0.1)
+        assert pol.delay(5) == pytest.approx(0.3)       # capped
+        assert pol.restartable(StreamStall("starved"))
+        assert pol.restartable(RetryExhausted("x"))
+        assert not pol.restartable(CorruptRecordError("x", record=0))
+        with pytest.raises(ValueError, match="restarts"):
+            RestartPolicy(restarts=-1)
+
+
+# -- live-source stalls -------------------------------------------------
+
+class TestLiveStall:
+    def test_starved_fetch_raises_stream_stall(self):
+        src = LiveSource(P.record_size, capacity=8, fetch_timeout=0.05)
+        src.bind(M, P)
+        src.push(np.zeros(P.record_size, np.float32))
+        with pytest.raises(StreamStall, match="starved") as ei:
+            src.fetch(np.arange(4))
+        assert is_retryable(ei.value)
+        # and it still reads as the pre-classification TimeoutError
+        assert isinstance(ei.value, TimeoutError)
+
+    def test_rebind_after_consumer_close_resumes_the_stream(self):
+        """close() auto-ends the ring so a blocked producer wakes; a
+        restarted tenant re-binding the SAME ring must keep consuming —
+        the auto-end was teardown debris, not the producer's end()."""
+        src = LiveSource(P.record_size, capacity=8)
+        src.bind(M, P)
+        src.push(np.zeros((2, P.record_size), np.float32))
+        src.close()
+        assert src.ended
+        src.bind(M, P)                      # re-admission re-binds
+        assert not src.ended
+        src.push(np.zeros(P.record_size, np.float32))   # keeps feeding
+        assert src.pushed == 3
+        # a REAL end() survives rebinding
+        src.end()
+        src.bind(M, P)
+        assert src.ended
+
+    def test_injected_stall_parks_and_heals(self, reader_data, tmp_path):
+        ref = _reader_job(reader_data, str(tmp_path / "ref")).run()
+        plan = FaultPlan([FaultSpec("live_stall", record=5, times=3)])
+        j = (_reader_job(reader_data, str(tmp_path / "s"))
+             .inject(plan).retry(attempts=1, **FAST))
+        svc = SoundscapeService(
+            restart=RestartPolicy(restarts=3, base_delay=0.0,
+                                  max_delay=0.0, jitter=0.0))
+        h = svc.submit(j, name="live")
+        svc.run(timeout=120)
+        got = h.result()
+        assert h.restarts > 0
+        assert_bitwise_welch(got, ref)
+
+    @pytest.mark.parametrize("wrap", ["retry", "tolerate", "inject"])
+    def test_ended_live_stream_under_fault_layer_finishes(self, wrap):
+        """A LiveSource under the fault wrappers that ends after 9 of 12
+        records: the wrappers forward ``stream_end``/``poll``, so the
+        job finishes over the 9 records it got, as the reference's
+        does (within the job tolerances)."""
+        recs = np.random.default_rng(4).standard_normal(
+            (9, P.record_size)).astype(np.float32)
+        layer = {"retry": lambda j: j.retry(attempts=2, **FAST),
+                 "tolerate": lambda j: j.tolerate(bad_records=1),
+                 "inject": lambda j: j.inject(FaultPlan([]))}[wrap]
+
+        def run(a, serve, m, p, extra=lambda j: j):
+            src = serve.LiveSource(record_size=p.record_size, capacity=16)
+            src.feed(recs)                  # pushes all 9, then end()
+            svc = serve.SoundscapeService()
+            h = layer(extra(a.job(m, p).features("welch", "spl").chunk(4)
+                            .source(src))).submit(svc, name="live")
+            svc.run(timeout=120)
+            return h.result()
+
+        from repro import serve as jserve
+        from repro_torch import serve as tserve
+        got = run(api, tserve, M, P, lambda j: j.device("cpu"))
+        want = run(japi, jserve, JM, JP)
+        assert got.n_records == want.n_records == 9
+        g, w = np.asarray(got["welch"][:9], np.float64), want["welch"][:9]
+        assert np.max(np.abs(g - w) / np.abs(w)) < 1e-4
+        assert np.max(np.abs(got["mean_welch"] - want["mean_welch"])
+                      / np.abs(want["mean_welch"])) < 1e-4
+        assert np.max(np.abs(got["spl"][:9] - want["spl"][:9])) < 1e-3
 
 
 class TestChaosSweep:

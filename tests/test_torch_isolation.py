@@ -35,6 +35,8 @@ def test_import_leaves_out_jax_and_reference():
         "import repro_torch.meta, repro_torch.faults.errors\n"
         "import repro_torch.data.loader, repro_torch.launch.depam_run\n"
         "import repro_torch.launch.mesh, repro_torch.faults.resilient\n"
+        "import repro_torch.serve, repro_torch.launch.serve\n"
+        "import repro_torch.api.formats\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -59,6 +61,14 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "src/repro_torch/meta/timestamps.py",
             "src/repro_torch/launch/mesh.py",
             "src/repro_torch/faults/resilient.py",
+            "src/repro_torch/api/formats.py",
+            "src/repro_torch/serve/__init__.py",
+            "src/repro_torch/serve/compile_cache.py",
+            "src/repro_torch/serve/live.py",
+            "src/repro_torch/serve/restart.py",
+            "src/repro_torch/serve/scheduler.py",
+            "src/repro_torch/serve/service.py",
+            "src/repro_torch/launch/serve.py",
             "scripts/torch_chaos_smoke.py"} <= names
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in FORBIDDEN.finditer(f.read_text())]

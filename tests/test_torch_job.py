@@ -270,10 +270,9 @@ def test_reference_sharded_store_resumes_in_record_order(tmp_path):
                   / np.abs(want["welch"])) < SHAPES["set1"][1]
 
 
-# names of reference modules the port has not ported yet (ROADMAP.md
-# queue A5 labeled outputs: ZarrSink, NetCDFSink, read_zarr_array, the
-# formats module)
-UNPORTED_API = {"ZarrSink", "NetCDFSink", "read_zarr_array", "formats"}
+# names of reference modules the port has not ported yet: none since the
+# labeled outputs (ZarrSink, NetCDFSink, read_zarr_array) came over
+UNPORTED_API: set[str] = set()
 
 
 def test_public_names_match_reference():
@@ -285,3 +284,37 @@ def test_public_names_match_reference():
     for name in api.__all__:
         assert getattr(api, name) is not None, name
 
+
+@pytest.mark.parametrize("payload", ["float32", "int16"])
+def test_instrument_equals_wav_calibration(tmp_path, payload):
+    """``.instrument(inst)`` derives the WavSource gain from the
+    recording chain: bitwise the job with ``WavSource(calibration=
+    inst.gain)``, within the job tolerances of the reference's
+    ``.instrument(inst)`` job; a calibration given twice, or an
+    instrument on a source without a wav calibration seam, is refused."""
+    from repro.data.wavio import write_dataset
+    p, jp = _params("set1")
+    m, jm = _manifests(p)
+    root = str(tmp_path / "wavs")
+    write_dataset(root, jm)
+    inst = api.Instrument(-170.0, gain_db=12.0, vpp=2.0)
+    jinst = japi.Instrument(-170.0, gain_db=12.0, vpp=2.0)
+
+    def job(pkg, m_, p_, src):
+        return (pkg.job(m_, p_).features(*FEATS).chunk(4)
+                .window(records=WINDOW).source(src).payload(payload))
+
+    got = job(api, m, p, api.WavSource(root)).instrument(inst) \
+        .async_io().device("cpu").run()
+    manual = job(api, m, p, api.WavSource(root, calibration=inst.gain)) \
+        .device("cpu").run()
+    _bitwise(got, manual)
+    want = job(japi, jm, jp, japi.WavSource(root)).instrument(jinst).run()
+    _close(got, want, *SHAPES["set1"][1:])
+    with pytest.raises(ValueError, match="calibration"):
+        job(api, m, p, api.WavSource(root, calibration=2.0)) \
+            .instrument(inst).device("cpu").run()
+    with pytest.raises(ValueError, match="wav-fed source"):
+        api.job(m, p).instrument(inst).device("cpu").run()
+    with pytest.raises(TypeError, match="Instrument"):
+        api.job(m, p).instrument(-170.0)
