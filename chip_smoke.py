@@ -45,12 +45,19 @@ detection into a NetCDF file, a set-1 ``LiveSource`` stream fed by a
 producer thread), each bitwise equal to its job run alone, then a
 background-mode drain, a tenant healed after an injected stall, the
 device memory after the services are dropped, and ``python -m
-repro_torch.launch.serve --verify`` (stores and Zarr).
+repro_torch.launch.serve --verify`` (stores and Zarr).  Phase 11
+serves the LM scaffold (``repro_torch.models.lm.LanguageModel``) at
+published width: qwen1.5-0.5b (four 512-token prompts and 64 greedy
+steps, twice; one 4096-token prompt through both attention branches)
+and seamless-m4t-large-v2 over 4096 frames that K5 makes from a paper
+record, each checked layer by layer (decode against forward, scanned
+against one-shot attention); then the six reduced attention archs on
+the card against the CPU.
 
 Launch counters, set to 0 before each path and read after it, show
 which kernels each path went through (the service drain's counts are
-``service_launches``).  Any failed check raises, so the
-script exits non-zero and never prints the ``ok`` line.
+``service_launches``, phase 11's ``lm_launches``).  Any failed check
+raises, so the script exits non-zero and never prints the ``ok`` line.
 
 Output, in order: the card (``nvidia-smi`` name and power limit), the
 build, one line per kernel check, per job and per CLI run, a
@@ -708,6 +715,437 @@ def phase10(api, np, torch, sets, wavs, counters, build, detect, all_equal,
               f"{wall:.1f} s; {drained!r}; 4 tenants bitwise-identical "
               f"({smi})")
     tmp.cleanup()
+    return seen
+
+
+# Phase 11: the LM scaffold's serving path (repro_torch.models) at full
+# width.  At the reference's init (fan-in along the head axis, so the
+# attention is sharply peaked) the full-depth models are chaotic:
+# decode against forward, the same math, drifts apart by orders of
+# magnitude every few layers, in float32 and in float64 alike
+# (scripts/torch_lm_depth_drift.py measures it; ROADMAP C8).  So the
+# full-depth checks go layer by layer, every layer fed the same input
+# both ways.  A decode step against the forward block: each layer's
+# output within 1e-3 relative (scores reach the hundreds at this init,
+# so one layer's float32 rounding moves its softmax by up to ~1e-4; a
+# wrong formula moves it by O(1)), the logits within the reference's
+# test_decode_matches_forward tolerance (rtol 2e-2, atol 2e-3, element
+# by element).  The scanned attention branch against the one-shot one:
+# each layer and the logits within 1e-4 relative.  Each served model
+# also gives the same tokens in two runs.  For the reduced archs the
+# card is held to the CPU on the same weights and inputs (11c): within
+# 1e-10 in float64, and in float32 within a fixed bound per arch and
+# branch, 1e-4 except where the CPU's own float32 error (against its
+# float64) is larger than that -- there about 3x the card's recorded
+# deviation (readings in the comment of LM_CARD_F32_TOL).
+LM_DECODE_RTOL, LM_DECODE_ATOL = 2e-2, 2e-3
+LM_LAYER_TOL, LM_BRANCH_TOL = 1e-3, 1e-4
+# (arch, batch, prompt tokens, decode steps) served at published width;
+# seamless-m4t-large-v2's encoder also takes AUDIO_FRAMES K5 frames, and
+# internvl2-1b's prompt sits behind its 256 image tokens.
+LM_SERVED = (("qwen1.5-0.5b", 4, 512, 64), ("seamless-m4t-large-v2", 1, 1024,
+                                             16),
+             ("minicpm3-4b", 4, 512, 16), ("internvl2-1b", 4, 256, 16))
+QWEN_LONG = 4096
+AUDIO_FRAMES = 4096
+LM_PROFILE_STEPS = 8
+# 11c: (attn_chunk, batch, tokens): one-shot, and the scanned branch.
+LM_CARD_CASES = ((64, 2, 16), (512, 1, 2100))
+LM_CARD_F64_TOL, LM_CARD_F32_CAP = 1e-10, 1e-4
+# Card float32 against CPU float32, (arch, attn_chunk) where the CPU's
+# own float32 error exceeds 1e-4 and the card's deviation from the CPU
+# comes near it (NVIDIA H100 80GB HBM3, 700.00 W; worst of forward,
+# prefill, decode): CPU error 4.9e-3 / card deviation 1.19e-4
+# (internlm2, scanned), 5.1e-4 / 4.72e-4 and 2.5e-2 / 9.63e-4 (seamless,
+# one-shot and scanned).  Elsewhere the card stays within 6.4e-5 of the
+# CPU (the CPU's own error up to 7.3e-4).
+LM_CARD_F32_TOL = {("internlm2-20b", 512): 4e-4,
+                   ("seamless-m4t-large-v2", 64): 2e-3,
+                   ("seamless-m4t-large-v2", 512): 3e-3}
+
+
+def lm_batch(cfg, b, s, seed, np):
+    """Seeded token prompts (and VLM patches / audio frames) as numpy."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (b, s)).astype(np.int64)
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (b, cfg.n_frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (b, 2 * s, cfg.frontend_dim)).astype(np.float32)
+    return batch
+
+
+def rel_err(got, want, n, np):
+    got = np.asarray(got.cpu(), np.float64)[..., :n]
+    want = np.asarray(want.cpu(), np.float64)[..., :n]
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def decode_vs_forward(first, full, n, np):
+    """(max abs error, max excess over the reference's rtol/atol) of the
+    first decode step's logits against forward's, logical vocabulary."""
+    a = np.asarray(first.cpu(), np.float64)[..., :n]
+    b = np.asarray(full.cpu(), np.float64)[..., :n]
+    err = np.abs(a - b)
+    return float(err.max()), float(
+        (err - (LM_DECODE_ATOL + LM_DECODE_RTOL * np.abs(b))).max())
+
+
+def serve(torch, model, batch, steps, s_max, n_in):
+    """Prefill, then ``steps`` greedy decode steps.  Returns (tokens,
+    prefill s, decode s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(batch, s_max)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = []
+    for i in range(steps):
+        tok = torch.argmax(logits[:, : model.cfg.vocab], dim=-1)
+        out.append(tok)
+        logits, caches = model.decode_step(tok[:, None], caches, n_in + i)
+    torch.cuda.synchronize()
+    return torch.stack(out, 1), t1 - t0, time.perf_counter() - t1
+
+
+def forced_decode(np, torch, lm, blocks, model, batch, tok, n_in):
+    """Decode against forward layer by layer in ``model``'s precision:
+    every layer gets the forward's input for it and runs the forward
+    block over the ``n_in`` stack positions + ``tok``, whose cache
+    (cut to those positions by the decode's own write at slot
+    ``n_in``) feeds one decode step of ``tok``.  Returns (worst layer's
+    relative deviation at the new position, the logits' (max abs error,
+    excess))."""
+    params, cfg, rt = model.tree(), model.cfg, model.rt
+    full = dict(batch, tokens=np.concatenate([batch["tokens"], tok], 1))
+    with torch.no_grad():
+        x, enc = lm.stack_input(params, full, cfg, rt)
+        pos = torch.arange(n_in + 1, device=x.device)[None]
+        worst = 0.0
+        for i in range(cfg.n_layers):
+            lp = blocks.layer(params["blocks"], i)
+            y, cache = blocks.apply_block(lp, x, cfg, rt, positions=pos,
+                                          enc_out=enc)
+            yd, _ = blocks.apply_block_decode(lp, x[:, n_in:], cache, n_in,
+                                              cfg, rt)
+            worst = max(worst, rel_err(yd[:, 0], y[:, -1], None, np))
+            x = y
+        logits = lm.head(params, x[:, -1], cfg)
+        dec = lm.head(params, yd[:, 0], cfg)
+    return worst, decode_vs_forward(dec, logits, cfg.vocab, np)
+
+
+def forced_branches(np, torch, lm, blocks, model, batch, scanned, one_shot):
+    """The two attention branches layer by layer: every layer gets the
+    one-shot forward's input for it.  Returns (worst layer's relative
+    deviation, the last logits' relative deviation)."""
+    params, cfg = model.tree(), model.cfg
+    with torch.no_grad():
+        x, _ = lm.stack_input(params, batch, cfg, one_shot)
+        pos = torch.arange(x.shape[1], device=x.device)[None]
+        worst = 0.0
+        for i in range(cfg.n_layers):
+            lp = blocks.layer(params["blocks"], i)
+            ys, _ = blocks.apply_block(lp, x, cfg, scanned, positions=pos)
+            x, _ = blocks.apply_block(lp, x, cfg, one_shot, positions=pos)
+            worst = max(worst, rel_err(ys, x, None, np))
+        return worst, rel_err(lm.head(params, ys[:, -1], cfg),
+                              lm.head(params, x[:, -1], cfg), cfg.vocab, np)
+
+
+def device_activity(prof):
+    """(device events sorted by start as (start, end, name), device-busy
+    us as the union of their intervals, traced span us) of a
+    ``torch.profiler`` window; busy is None where it saw no device
+    activity."""
+    from torch.autograd import DeviceType
+
+    evs = list(prof.events())
+    on_dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in evs if e.device_type == DeviceType.CUDA)
+    if not on_dev:
+        return on_dev, None, None
+    busy, end = 0.0, -math.inf
+    for a, b, _ in on_dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = (max(e.time_range.end for e in evs)
+            - min(e.time_range.start for e in evs))
+    return on_dev, busy, span
+
+
+def profile_decode(torch, model, batch, s_max, n_in):
+    """One ``torch.profiler`` window over LM_PROFILE_STEPS greedy decode
+    steps after a prefill.  Returns (device operations a step, device
+    busy ms, traced ms), the last two None where the profiler saw no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    logits, caches = model.prefill(batch, s_max)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(LM_PROFILE_STEPS):
+            tok = torch.argmax(logits[:, : model.cfg.vocab], dim=-1)
+            logits, caches = model.decode_step(tok[:, None], caches,
+                                               n_in + i)
+        torch.cuda.synchronize()
+    on_dev, busy, span = device_activity(prof)
+    if busy is None:
+        return 0.0, None, None
+    return len(on_dev) / LM_PROFILE_STEPS, busy / 1e3, span / 1e3
+
+
+def lm_bounds(lm, module, cfg, rt, batch, tokens, frames, cache_len):
+    """(prefill bound ms, decode-step bound ms): the weight matmuls of a
+    prefill (2 flops a weight a token; encoder weights a frame) at the
+    f32 peak, which leaves attention and the head out; and a decode
+    step's bytes -- every weight and every cache entry read once -- at
+    the memory rate."""
+    defs = lm.param_defs(cfg, rt)
+    enc = module.count_params(defs["encoder"]) if "encoder" in defs else 0
+    flops = 2 * batch * (tokens * module.count_params(defs["blocks"])
+                         + frames * enc)
+    per_pos = (cfg.kv_lora_rank + cfg.qk_rope_dim if cfg.mla
+               else 2 * cfg.n_kv_heads * cfg.hd)
+    kv = cfg.n_layers * batch * per_pos * 4 * (cache_len + frames)
+    return (flops / PEAK_F32_FLOPS * 1e3,
+            (module.count_params(defs) * 4 + kv) / PEAK_BYTES * 1e3)
+
+
+def serve_full_width(np, torch, lm, blocks, module, model, batch, steps, smi,
+                     frames=0):
+    """``model`` at published width: serve ``batch`` twice (the second
+    run timed), the same tokens both times; decode against forward layer
+    by layer; one profiled window of decode steps.  Prints one line and
+    one JSON object; raises past a bound."""
+    cfg = model.cfg
+    b = batch["tokens"].shape[0]
+    extra = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    n_in = batch["tokens"].shape[1] + extra
+    s_max = n_in + steps
+    runs = [serve(torch, model, batch, steps, s_max, n_in) for _ in range(2)]
+    check(torch.equal(runs[0][0], runs[1][0]),
+          f"{cfg.name}: two greedy runs gave different tokens")
+    toks, pre_s, dec_s = runs[1]
+    peak = torch.cuda.max_memory_allocated()
+    layer, (lerr, excess) = forced_decode(
+        np, torch, lm, blocks, model, batch, toks[:, :1].cpu().numpy(), n_in)
+    check(layer <= LM_LAYER_TOL and excess <= 0,
+          f"{cfg.name} layer by layer: decode against forward {layer:.3e} "
+          f"relative at the worst layer, logits off by {lerr:.3e}")
+    ops_step, busy_ms, span_ms = profile_decode(torch, model, batch, s_max,
+                                                n_in)
+    n_params = module.count_params(lm.param_defs(cfg, model.rt))
+    pre_bound, dec_bound = lm_bounds(lm, module, cfg, model.rt, b, n_in,
+                                     frames, s_max)
+    positions = b * (n_in + frames)
+    busy = ("device busy not measured (the profiler saw no device "
+            "activity)" if busy_ms is None else
+            f"{ops_step:.1f} device operations a step "
+            f"({ops_step / cfg.n_layers:.1f} a layer), device busy "
+            f"{busy_ms:.3f} of {span_ms:.3f} ms traced "
+            f"({busy_ms / span_ms:.1%})")
+    print(f"lm {cfg.name} ({n_params} params, f32, {cfg.padded_vocab}-wide "
+          f"logits): B={b} x {n_in} positions"
+          + (f" over {frames} encoder frames" if frames else "")
+          + f", prefill {pre_s * 1e3:.2f} ms ({positions / pre_s:.1f} "
+          f"positions/s), {steps} greedy steps {dec_s * 1e3 / steps:.3f} "
+          f"ms/step ({b * steps / dec_s:.1f} tokens/s), bounds "
+          f"{pre_bound:.3f} / {dec_bound:.4f} ms, peak "
+          f"{peak / 2**30:.3f} GiB; tokens equal over 2 runs; decode vs "
+          f"forward layer by layer f32: worst layer {layer:.3e} relative, "
+          f"logits max abs err {lerr:.3e}; {LM_PROFILE_STEPS} profiled "
+          f"decode steps: {busy} ({smi})")
+    print(json.dumps({"lm": cfg.name, "params": n_params, "batch": b,
+                      "prompt_positions": n_in, "encoder_frames": frames,
+                      "prefill_ms": pre_s * 1e3,
+                      "prefill_positions_per_s": positions / pre_s,
+                      "decode_ms_per_step": dec_s * 1e3 / steps,
+                      "decode_tokens_per_s": b * steps / dec_s,
+                      "prefill_bound_ms": pre_bound,
+                      "decode_bound_ms": dec_bound,
+                      "decode_ops_per_step": ops_step,
+                      "decode_device_busy_ms": busy_ms,
+                      "decode_traced_ms": span_ms,
+                      "decode_vs_forward_layer_rel_f32": layer,
+                      "decode_vs_forward_logits_abs_f32": lerr,
+                      "peak_bytes": peak, "device": smi}))
+
+
+def card_vs_cpu(np, torch, arch, chunk, b, s):
+    """One reduced attention arch on the card against the CPU, on the
+    same seeded weights and inputs: forward's last logits, prefill's and
+    the first decode step's, in float64 (within LM_CARD_F64_TOL) and in
+    float32 (within LM_CARD_F32_TOL, LM_CARD_F32_CAP where not listed).
+    Returns {what: (float64 error, float32 error, the CPU's own float32
+    error against its float64)}; raises past a bound."""
+    import repro_torch.configs as configs
+    from repro_torch.configs.base import RunSpec
+    from repro_torch.models import lm, module
+
+    cfg = configs.get(arch, reduced=True)
+    rt = RunSpec(attn_chunk=chunk)
+    params = module.init(lm.param_defs(cfg, rt), device="cpu",
+                         generator=SEED)
+    batch = lm_batch(cfg, b, s, SEED, np)
+    extra = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+
+    def outputs(device, dtype):
+        tree = module.tree_map(lambda t: t.to(device, dtype), params)
+        bt = {k: v.astype(np.float64) if dtype == torch.float64
+              and v.dtype == np.float32 else v for k, v in batch.items()}
+        fwd = lm.forward(tree, bt, cfg, rt)[:, -1]
+        prompt = dict(bt, tokens=bt["tokens"][:, :-1])
+        pre, caches = lm.prefill(tree, prompt, cfg, rt, s + 4 + extra)
+        dec, _ = lm.decode_step(tree, bt["tokens"][:, -1:], caches,
+                                s - 1 + extra, cfg, rt)
+        return fwd, pre, dec
+
+    with torch.no_grad():
+        runs = {(d, t): outputs(d, t) for d in ("cpu", "cuda")
+                for t in (torch.float64, torch.float32)}
+    f32_tol = LM_CARD_F32_TOL.get((arch, chunk), LM_CARD_F32_CAP)
+    out = {}
+    for i, what in enumerate(("forward", "prefill", "decode")):
+        e64, e32 = (
+            rel_err(runs["cuda", t][i], runs["cpu", t][i], cfg.vocab, np)
+            for t in (torch.float64, torch.float32))
+        noise = rel_err(runs["cpu", torch.float32][i],
+                        runs["cpu", torch.float64][i], cfg.vocab, np)
+        check(e64 <= LM_CARD_F64_TOL and e32 <= f32_tol,
+              f"{arch} reduced {what} (attn_chunk {chunk}): card "
+              f"{e64:.3e} (float64, bound {LM_CARD_F64_TOL:.0e}) and "
+              f"{e32:.3e} (float32, bound {f32_tol:.0e}) relative from "
+              f"the CPU")
+        out[what] = (e64, e32, noise)
+    return out
+
+
+def phase11(np, torch, sets, counters, smi):
+    """Phase 11: qwen1.5-0.5b, seamless-m4t-large-v2 (over K5 frames of a
+    paper record), minicpm3-4b (MLA) and internvl2-1b (the VLM prefix)
+    served at their published widths through ``LanguageModel``, seeded
+    float32 weights (11a, 11b, 11d); then the attention archs at their
+    reduced configs on the card against the CPU (11c).  Returns the
+    launches per kernel, counted from the start of the phase to its
+    end."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.configs.base import RunSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks, lm, module
+
+    for c in counters.values():
+        c.reset()
+
+    def served(arch, **over):
+        cfg = dataclasses.replace(configs.get(arch), **over)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return lm.LanguageModel(cfg, RunSpec(), device="cuda",
+                                generator=SEED)
+
+    cases = {a: (b, s, n) for a, b, s, n in LM_SERVED}
+    t_sub = [time.perf_counter()]
+
+    def sub_done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_sub[0]:.1f} s")
+        t_sub[0] = now
+
+    # -- 11a: qwen1.5-0.5b ----------------------------------------------
+    b, s, steps = cases["qwen1.5-0.5b"]
+    model = served("qwen1.5-0.5b")
+    serve_full_width(np, torch, lm, blocks, module, model,
+                     lm_batch(model.cfg, b, s, SEED, np), steps, smi)
+    long = lm_batch(model.cfg, 1, QWEN_LONG, SEED + 1, np)
+    last, times = {}, {}
+    one_shot = model.rt
+    for chunk in (1024, QWEN_LONG):    # scanned; one shot
+        model.rt = dataclasses.replace(one_shot, attn_chunk=chunk)
+        model.prefill(long, QWEN_LONG)              # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last[chunk], _ = model.prefill(long, QWEN_LONG)
+        torch.cuda.synchronize()
+        times[chunk] = (time.perf_counter() - t0,
+                        torch.cuda.max_memory_allocated())
+    free = rel_err(last[1024], last[QWEN_LONG], model.cfg.vocab, np)
+    layer, blogits = forced_branches(
+        np, torch, lm, blocks, model, long,
+        dataclasses.replace(model.rt, attn_chunk=1024), model.rt)
+    check(layer <= LM_BRANCH_TOL and blogits <= LM_BRANCH_TOL,
+          f"qwen1.5-0.5b {QWEN_LONG}-token prompt layer by layer: scanned "
+          f"branch {layer:.3e} relative from one-shot at the worst layer, "
+          f"logits {blogits:.3e} (tolerance {LM_BRANCH_TOL})")
+    print(f"lm qwen1.5-0.5b one {QWEN_LONG}-token prompt: scanned "
+          f"(attn_chunk 1024) prefill {times[1024][0] * 1e3:.2f} ms "
+          f"({QWEN_LONG / times[1024][0]:.1f} tokens/s, peak "
+          f"{times[1024][1] / 2**30:.3f} GiB), one-shot "
+          f"{times[QWEN_LONG][0] * 1e3:.2f} ms "
+          f"({QWEN_LONG / times[QWEN_LONG][0]:.1f} tokens/s, peak "
+          f"{times[QWEN_LONG][1] / 2**30:.3f} GiB); scanned vs one-shot "
+          f"layer by layer f32: worst layer {layer:.3e}, last logits "
+          f"{blogits:.3e} relative; free-running last logits {free:.3e} "
+          f"(not gated) ({smi})")
+    del model, last
+    sub_done("11a")
+
+    # -- 11b: seamless-m4t-large-v2 over K5 frames of a paper record -----
+    p1, _m1, pcm1, scales1 = sets["set1"]
+    record = torch.as_tensor(pcm1[:1].astype(np.float32)
+                             * scales1[:1][:, None], device="cuda")
+    fp = ops.frame_psd(record, p1)                  # K5: (1, F, n_bins)
+    feats = torch.log10(torch.clamp(fp, min=1e-12))
+    mu = feats.mean(dim=(1, 2), keepdim=True)
+    sd = feats.std(dim=(1, 2), keepdim=True, unbiased=False) + 1e-6
+    frames = ((feats - mu) / sd)[:, :AUDIO_FRAMES]
+    check(frames.shape == (1, AUDIO_FRAMES, p1.n_bins)
+          and bool(torch.isfinite(frames).all()), "audio frames")
+    del record, fp, feats
+    b, s, steps = cases["seamless-m4t-large-v2"]
+    model = served("seamless-m4t-large-v2", frontend_dim=p1.n_bins)
+    batch = {"frames": frames,
+             "tokens": lm_batch(model.cfg, b, s, SEED + 2, np)["tokens"]}
+    serve_full_width(np, torch, lm, blocks, module, model, batch, steps, smi,
+                     frames=AUDIO_FRAMES)
+    del model, batch, frames
+    sub_done("11b")
+
+    # -- 11d: MLA and the VLM prefix ---------------------------------------
+    for arch in ("minicpm3-4b", "internvl2-1b"):
+        b, s, steps = cases[arch]
+        model = served(arch)
+        serve_full_width(np, torch, lm, blocks, module, model,
+                         lm_batch(model.cfg, b, s, SEED, np), steps, smi)
+        del model
+    torch.cuda.empty_cache()
+    sub_done("11d")
+
+    # -- 11c: the reduced attention archs, card against CPU --------------
+    for arch in configs.ARCHS:
+        if configs.get(arch, reduced=True).family not in lm.FAMILIES:
+            continue
+        for chunk, b, s in LM_CARD_CASES:
+            errs = card_vs_cpu(np, torch, arch, chunk, b, s)
+            print(f"lm {arch} reduced, {b}x{s} tokens, attn_chunk {chunk}: "
+                  f"card vs CPU float64 / float32 (CPU float32 vs float64) "
+                  + "; ".join(f"{w} {a:.2e} / {c:.2e} ({n:.2e})"
+                              for w, (a, c, n) in errs.items()))
+    sub_done("11c")
+
+    seen = {c: counters[c].count for c in counters}
+    print(f"phase 11 launches: {seen}")
+    check(seen["frame_psd"] >= 1 and all(
+        n == 0 for c, n in seen.items() if c != "frame_psd"),
+          f"phase 11 launched {seen}")
     return seen
 
 
@@ -1461,7 +1899,6 @@ def main() -> int:
     phase_done("5")
 
     # -- phase 6: one profiled window of async steps -------------------------
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sink = TimedMemorySink()
@@ -1482,17 +1919,8 @@ def main() -> int:
                 window_s = time.perf_counter() - t0
     finally:
         st.close()
-    evs = list(prof.events())
-    on_dev = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in evs if e.device_type == DeviceType.CUDA)
+    on_dev, busy, span = device_activity(prof)
     if on_dev:
-        busy, end = 0.0, -math.inf
-        for a, b, _ in on_dev:
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        span = (max(e.time_range.end for e in evs)
-                - min(e.time_range.start for e in evs))
         memcpy = {}
         for a, b, nm in on_dev:
             kind = next((k for k in ("HtoD", "DtoH", "DtoD") if k in nm),
@@ -1808,6 +2236,10 @@ def main() -> int:
     wav_tmp.cleanup()
     phase_done("10")
 
+    # -- phase 11: the LM serving path at full width -------------------------
+    lm_launches = phase11(np, torch, sets, counters, smi)
+    phase_done("11")
+
     p, m = sets["set1"][:2]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1827,6 +2259,7 @@ def main() -> int:
         r["launches"] = launches[r["name"]]
         r["sharded_launches"] = sharded_launches[r["name"]]
         r["service_launches"] = service_launches[r["name"]]
+        r["lm_launches"] = lm_launches[r["name"]]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

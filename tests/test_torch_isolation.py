@@ -37,6 +37,9 @@ def test_import_leaves_out_jax_and_reference():
         "import repro_torch.launch.mesh, repro_torch.faults.resilient\n"
         "import repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.api.formats\n"
+        "import repro_torch.configs, repro_torch.models.lm\n"
+        "import repro_torch.models.attention\n"
+        "[repro_torch.configs.get(a) for a in repro_torch.configs.ARCHS]\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
@@ -69,6 +72,14 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "src/repro_torch/serve/scheduler.py",
             "src/repro_torch/serve/service.py",
             "src/repro_torch/launch/serve.py",
+            "src/repro_torch/configs/__init__.py",
+            "src/repro_torch/configs/base.py",
+            "src/repro_torch/configs/seamless_m4t_large_v2.py",
+            "src/repro_torch/models/module.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/attention.py",
+            "src/repro_torch/models/blocks.py",
+            "src/repro_torch/models/lm.py",
             "scripts/torch_chaos_smoke.py"} <= names
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in FORBIDDEN.finditer(f.read_text())]
