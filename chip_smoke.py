@@ -50,9 +50,11 @@ serves the LM scaffold (``repro_torch.models.lm.LanguageModel``) at
 published width: qwen1.5-0.5b (four 512-token prompts and 64 greedy
 steps, twice; one 4096-token prompt through both attention branches)
 and seamless-m4t-large-v2 over 4096 frames that K5 makes from a paper
-record, each checked layer by layer (decode against forward, scanned
-against one-shot attention); then the six reduced attention archs on
-the card against the CPU.
+record, minicpm3-4b (MLA) and internvl2-1b, then qwen3-moe-30b-a3b (12
+of its 48 layers), mamba2-2.7b and zamba2-1.2b, each checked layer by
+layer (decode against forward, scanned against one-shot attention);
+qwen1.5-0.5b's decode over a mesh of cuda:0 x 4 against its unsharded
+decode; then all ten reduced archs on the card against the CPU.
 
 Launch counters, set to 0 before each path and read after it, show
 which kernels each path went through (the service drain's counts are
@@ -764,6 +766,42 @@ LM_CARD_F32_TOL = {("internlm2-20b", 512): 4e-4,
                    ("seamless-m4t-large-v2", 512): 3e-3}
 
 
+# 11e-11g: the other families at published width, (arch, batch, prompt
+# tokens, decode steps).  qwen3-moe-30b-a3b runs MOE_LAYERS of its 48
+# layers: all 48 are ~30.5 B params, ~122 GB in f32, past the card's
+# 80 GB.  Its layer-by-layer gate runs at MOE_GATE_CF, which sets the
+# capacity to the whole batch (C >= T), so no assignment drops in the
+# forward block or the decode step; served, it keeps the config's 1.25.
+LM_FAMILIES_SERVED = (("qwen3-moe-30b-a3b", 4, 512, 16),
+                      ("mamba2-2.7b", 4, 512, 16),
+                      ("zamba2-1.2b", 4, 512, 16))
+MOE_LAYERS = 12
+MOE_GATE_CF = 16.0
+MAMBA_PROMPTS = (512, 4096)     # B = 1: decode ms a step after each
+# 11h: qwen1.5-0.5b's decode over a mesh of cuda:0 repeated, (model,
+# batch): the batch over data and the sequence over model; four
+# sequence shards over model; the long-context branch (batch 1 < data 2:
+# the sequence over data x model).  Teacher-forced MESH_STEPS steps
+# against the unsharded decode.  In float64 the logits within
+# MESH_F64_TOL relative: the full-depth model amplifies a rounding
+# difference (here: the sums over the sequence split at shard
+# boundaries) to 3.7e-6 in float64 (decode against forward, ROADMAP
+# C8), a fault moves them by O(1).  In float32 the chaos takes them far
+# apart, so float32 is gated layer by layer (each layer fed the
+# unsharded decode's input, within LM_LAYER_TOL) and its logits printed.
+# MLA's mesh decode: minicpm3-4b reduced, card against CPU (11c's
+# bounds), both layouts.
+MESH_CASES = ((2, 4), (4, 1), (2, 1))
+MESH_STEPS = 16
+MESH_F64_TOL = 1e-4
+
+
+def lm_card_cases(cfg):
+    """11c's cases of an arch: both attention branches, or the one-shot
+    case alone for an SSM (no attention, no branch)."""
+    return LM_CARD_CASES[:1] if cfg.family == "ssm" else LM_CARD_CASES
+
+
 def lm_batch(cfg, b, s, seed, np):
     """Seeded token prompts (and VLM patches / audio frames) as numpy."""
     rng = np.random.default_rng(seed)
@@ -816,26 +854,89 @@ def forced_decode(np, torch, lm, blocks, model, batch, tok, n_in):
     every layer gets the forward's input for it and runs the forward
     block over the ``n_in`` stack positions + ``tok``, whose cache
     (cut to those positions by the decode's own write at slot
-    ``n_in``) feeds one decode step of ``tok``.  Returns (worst layer's
-    relative deviation at the new position, the logits' (max abs error,
-    excess))."""
+    ``n_in``) feeds one decode step of ``tok``.  An SSM or hybrid stack
+    goes through ``forced_decode_ssm``.  Returns {"layer": the worst
+    layer's relative deviation at the new position, "logits": (max abs
+    error, excess) of the logits}; for an MoE also "agree": the share
+    of (token, expert) assignments the decode step routes as the
+    forward block does, and "flipped": the (layer, row) pairs whose
+    top-k sets differ, which the deviations leave out."""
     params, cfg, rt = model.tree(), model.cfg, model.rt
     full = dict(batch, tokens=np.concatenate([batch["tokens"], tok], 1))
-    with torch.no_grad():
+    if cfg.family in ("ssm", "hybrid"):
+        return forced_decode_ssm(np, torch, lm, blocks, model, full, n_in)
+    from repro_torch.models import moe
+
+    b, k = tok.shape[0], cfg.moe_top_k
+    routes, same, flipped = [], 0, []
+    rows = list(range(b))
+    with torch.no_grad(), moe.observe(routes.append):
         x, enc = lm.stack_input(params, full, cfg, rt)
         pos = torch.arange(n_in + 1, device=x.device)[None]
         worst = 0.0
         for i in range(cfg.n_layers):
             lp = blocks.layer(params["blocks"], i)
+            routes.clear()
             y, cache = blocks.apply_block(lp, x, cfg, rt, positions=pos,
                                           enc_out=enc)
             yd, _ = blocks.apply_block_decode(lp, x[:, n_in:], cache, n_in,
                                               cfg, rt)
+            if routes:          # the forward block's, then the decode's
+                fwd = routes[0].eids.reshape(b, n_in + 1, k)[:, -1].tolist()
+                dec = routes[1].eids.reshape(b, k).tolist()
+                same += sum(len(set(f) & set(d)) for f, d in zip(fwd, dec))
+                rows = [r for r in range(b) if set(fwd[r]) == set(dec[r])]
+                flipped += [(i, r) for r in range(b) if r not in rows]
+            if rows:
+                worst = max(worst, rel_err(yd[rows, 0], y[rows, -1], None,
+                                           np))
+            x = y
+        logits = lm.head(params, x[:, -1], cfg)
+        dec = lm.head(params, yd[:, 0], cfg)
+    out = {"layer": worst,
+           "logits": decode_vs_forward(dec[rows], logits[rows], cfg.vocab,
+                                       np) if rows else (0.0, 0.0)}
+    if cfg.n_experts:
+        out["agree"] = same / (cfg.n_layers * b * k)
+        out["flipped"] = flipped
+        out["logit_rows"] = len(rows)
+    return out
+
+
+def forced_decode_ssm(np, torch, lm, blocks, model, full, n_in):
+    """``forced_decode`` for a stack of mamba blocks: each block's
+    recurrent decode step of the last position, from the cache of the
+    chunked block over the ``n_in`` before it, against the chunked block
+    over all of them; each hybrid site's shared-block decode step
+    against its full-sequence block (the stack input ``x0`` feeding
+    every site)."""
+    params, cfg, rt = model.tree(), model.cfg, model.rt
+    with torch.no_grad():
+        x, _ = lm.stack_input(params, full, cfg, rt)
+        x0 = x
+        pos = torch.arange(n_in + 1, device=x.device)[None]
+        worst = 0.0
+        for i in range(cfg.n_layers):
+            if cfg.family == "hybrid" and i % cfg.attn_every == 0:
+                lora = lm.site_lora(params, i // cfg.attn_every)
+                dx, cache = lm._apply_shared(params["shared"], lora, x, x0,
+                                             cfg, rt, positions=pos)
+                dxd, _ = lm._apply_shared(
+                    params["shared"], lora, x[:, n_in:], x0[:, n_in:], cfg,
+                    rt, positions=None, cache=cache, pos=n_in)
+                worst = max(worst, rel_err(dxd[:, 0], dx[:, -1], None, np))
+                x = x + dx
+            lp = blocks.layer(params["blocks"], i)
+            y, _ = blocks.apply_mamba_block(lp, x, cfg, rt)
+            _, cache = blocks.apply_mamba_block(lp, x[:, :n_in], cfg, rt)
+            yd, _ = blocks.apply_mamba_block_decode(lp, x[:, n_in:], cache,
+                                                    cfg, rt)
             worst = max(worst, rel_err(yd[:, 0], y[:, -1], None, np))
             x = y
         logits = lm.head(params, x[:, -1], cfg)
         dec = lm.head(params, yd[:, 0], cfg)
-    return worst, decode_vs_forward(dec, logits, cfg.vocab, np)
+    return {"layer": worst,
+            "logits": decode_vs_forward(dec, logits, cfg.vocab, np)}
 
 
 def forced_branches(np, torch, lm, blocks, model, batch, scanned, one_shot):
@@ -900,29 +1001,59 @@ def profile_decode(torch, model, batch, s_max, n_in):
     return len(on_dev) / LM_PROFILE_STEPS, busy / 1e3, span / 1e3
 
 
-def lm_bounds(lm, module, cfg, rt, batch, tokens, frames, cache_len):
+def lm_bounds(lm, module, torch, cfg, rt, batch, tokens, frames,
+              cache_len, expert_share=1.0):
     """(prefill bound ms, decode-step bound ms): the weight matmuls of a
-    prefill (2 flops a weight a token; encoder weights a frame) at the
-    f32 peak, which leaves attention and the head out; and a decode
-    step's bytes -- every weight and every cache entry read once -- at
-    the memory rate."""
+    prefill (2 flops a weight a token; for an MoE the top-k of its
+    experts, for the hybrid the shared block once a site; encoder
+    weights a frame) at the f32 peak, which leaves attention, the SSD
+    scan and the head out; and a decode step's bytes -- every weight
+    read once (for an MoE only ``expert_share`` of the expert weights,
+    the share one step routes to) and every cache entry (``cache_specs``
+    at f32) -- at the memory rate."""
     defs = lm.param_defs(cfg, rt)
-    enc = module.count_params(defs["encoder"]) if "encoder" in defs else 0
-    flops = 2 * batch * (tokens * module.count_params(defs["blocks"])
-                         + frames * enc)
-    per_pos = (cfg.kv_lora_rank + cfg.qk_rope_dim if cfg.mla
-               else 2 * cfg.n_kv_heads * cfg.hd)
-    kv = cfg.n_layers * batch * per_pos * 4 * (cache_len + frames)
+    count = module.count_params
+    enc = count(defs["encoder"]) if "encoder" in defs else 0
+    per_token = count(defs["blocks"])
+    weights = count(defs)
+    if cfg.n_experts:
+        ffn = defs["blocks"]["ffn"]
+        experts = sum(count(ffn[w]) for w in ("wi", "wg", "wo"))
+        per_token -= experts * (1 - cfg.moe_top_k / cfg.n_experts)
+        weights -= experts * (1 - expert_share)
+    if "shared" in defs:
+        per_token += lm.n_attn_sites(cfg) * count(defs["shared"])
+        per_token += count(defs["lora_a"]) + count(defs["lora_b"])
+    flops = 2 * batch * (tokens * per_token + frames * enc)
+    specs, _ = lm.cache_specs(cfg, rt, batch, cache_len, dtype=torch.float32,
+                              enc_len=frames or None)
+    cache = sum(t.numel() * t.element_size()
+                for _, t in module.leaves_with_path(specs))
     return (flops / PEAK_F32_FLOPS * 1e3,
-            (module.count_params(defs) * 4 + kv) / PEAK_BYTES * 1e3)
+            (weights * 4 + cache) / PEAK_BYTES * 1e3)
+
+
+def expert_share(moe, model, tokens, caches, pos):
+    """The share of the expert weights one decode step routes to (the
+    distinct experts of each layer, over layers x experts), on copies
+    of the caches."""
+    seen = []
+    copies = [c.clone() for c in caches]
+    with moe.observe(lambda r: seen.append(len(set(r.eids.flatten()
+                                                   .tolist())))):
+        model.decode_step(tokens, tuple(copies), pos)
+    return sum(seen) / (len(seen) * model.cfg.n_experts)
 
 
 def serve_full_width(np, torch, lm, blocks, module, model, batch, steps, smi,
-                     frames=0):
+                     frames=0, gate_rt=None):
     """``model`` at published width: serve ``batch`` twice (the second
     run timed), the same tokens both times; decode against forward layer
-    by layer; one profiled window of decode steps.  Prints one line and
-    one JSON object; raises past a bound."""
+    by layer (under ``gate_rt`` where given); one profiled window of
+    decode steps.  Prints one line and one JSON object; raises past a
+    bound."""
+    from repro_torch.models import moe
+
     cfg = model.cfg
     b = batch["tokens"].shape[0]
     extra = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
@@ -933,16 +1064,52 @@ def serve_full_width(np, torch, lm, blocks, module, model, batch, steps, smi,
           f"{cfg.name}: two greedy runs gave different tokens")
     toks, pre_s, dec_s = runs[1]
     peak = torch.cuda.max_memory_allocated()
-    layer, (lerr, excess) = forced_decode(
-        np, torch, lm, blocks, model, batch, toks[:, :1].cpu().numpy(), n_in)
+    share, moe_note, moe_json = 1.0, "", {}
+    if cfg.n_experts:
+        kept = []
+        with torch.no_grad(), moe.observe(
+                lambda r: kept.append(r.keep.sum())):
+            _, caches = model.prefill(batch, s_max)
+        per_layer = b * n_in * cfg.moe_top_k
+        layer_drop = [1 - int(k) / per_layer for k in kept]
+        n_kept = int(torch.stack(kept).sum())
+        n_all = len(kept) * per_layer
+        share = expert_share(moe, model, toks[:, :1], caches, n_in)
+        del caches
+    serve_rt = model.rt
+    model.rt = gate_rt or serve_rt
+    gate = forced_decode(np, torch, lm, blocks, model, batch,
+                         toks[:, :1].cpu().numpy(), n_in)
+    model.rt = serve_rt
+    layer, (lerr, excess) = gate["layer"], gate["logits"]
     check(layer <= LM_LAYER_TOL and excess <= 0,
           f"{cfg.name} layer by layer: decode against forward {layer:.3e} "
           f"relative at the worst layer, logits off by {lerr:.3e}")
+    if cfg.n_experts:
+        cf = serve_rt.capacity_factor or cfg.moe_capacity_factor
+        moe_note = (f"; capacity factor {cf}: "
+                    f"{n_all - n_kept} of {n_all} assignments dropped at "
+                    f"prefill ({(n_all - n_kept) / n_all:.3%}; by layer "
+                    + ", ".join(f"{d:.1%}" for d in layer_drop)
+                    + f"); a decode "
+                    f"step reads {share:.1%} of the expert weights; gate "
+                    f"at capacity factor {gate_rt.capacity_factor} (no "
+                    f"drops): decode routes {gate['agree']:.4%} of "
+                    f"(token, expert) assignments as forward does, "
+                    f"{len(gate['flipped'])} (layer, row) top-k sets "
+                    f"flipped {gate['flipped']} and left out, logits on "
+                    f"{gate['logit_rows']} of {b} rows")
+        moe_json = {"prefill_dropped": n_all - n_kept,
+                    "prefill_assignments": n_all,
+                    "prefill_dropped_share_by_layer": layer_drop,
+                    "decode_expert_share": share,
+                    "gate_routing_agree": gate["agree"],
+                    "gate_flipped": gate["flipped"]}
     ops_step, busy_ms, span_ms = profile_decode(torch, model, batch, s_max,
                                                 n_in)
     n_params = module.count_params(lm.param_defs(cfg, model.rt))
-    pre_bound, dec_bound = lm_bounds(lm, module, cfg, model.rt, b, n_in,
-                                     frames, s_max)
+    pre_bound, dec_bound = lm_bounds(lm, module, torch, cfg, model.rt, b,
+                                     n_in, frames, s_max, share)
     positions = b * (n_in + frames)
     busy = ("device busy not measured (the profiler saw no device "
             "activity)" if busy_ms is None else
@@ -950,8 +1117,8 @@ def serve_full_width(np, torch, lm, blocks, module, model, batch, steps, smi,
             f"({ops_step / cfg.n_layers:.1f} a layer), device busy "
             f"{busy_ms:.3f} of {span_ms:.3f} ms traced "
             f"({busy_ms / span_ms:.1%})")
-    print(f"lm {cfg.name} ({n_params} params, f32, {cfg.padded_vocab}-wide "
-          f"logits): B={b} x {n_in} positions"
+    print(f"lm {cfg.name} ({n_params} params, {cfg.n_layers} layers, f32, "
+          f"{cfg.padded_vocab}-wide logits): B={b} x {n_in} positions"
           + (f" over {frames} encoder frames" if frames else "")
           + f", prefill {pre_s * 1e3:.2f} ms ({positions / pre_s:.1f} "
           f"positions/s), {steps} greedy steps {dec_s * 1e3 / steps:.3f} "
@@ -959,9 +1126,10 @@ def serve_full_width(np, torch, lm, blocks, module, model, batch, steps, smi,
           f"{pre_bound:.3f} / {dec_bound:.4f} ms, peak "
           f"{peak / 2**30:.3f} GiB; tokens equal over 2 runs; decode vs "
           f"forward layer by layer f32: worst layer {layer:.3e} relative, "
-          f"logits max abs err {lerr:.3e}; {LM_PROFILE_STEPS} profiled "
-          f"decode steps: {busy} ({smi})")
-    print(json.dumps({"lm": cfg.name, "params": n_params, "batch": b,
+          f"logits max abs err {lerr:.3e}{moe_note}; {LM_PROFILE_STEPS} "
+          f"profiled decode steps: {busy} ({smi})")
+    print(json.dumps({"lm": cfg.name, "params": n_params,
+                      "layers": cfg.n_layers, "batch": b,
                       "prompt_positions": n_in, "encoder_frames": frames,
                       "prefill_ms": pre_s * 1e3,
                       "prefill_positions_per_s": positions / pre_s,
@@ -974,11 +1142,12 @@ def serve_full_width(np, torch, lm, blocks, module, model, batch, steps, smi,
                       "decode_traced_ms": span_ms,
                       "decode_vs_forward_layer_rel_f32": layer,
                       "decode_vs_forward_logits_abs_f32": lerr,
+                      **moe_json,
                       "peak_bytes": peak, "device": smi}))
 
 
 def card_vs_cpu(np, torch, arch, chunk, b, s):
-    """One reduced attention arch on the card against the CPU, on the
+    """One reduced arch on the card against the CPU, on the
     same seeded weights and inputs: forward's last logits, prefill's and
     the first decode step's, in float64 (within LM_CARD_F64_TOL) and in
     float32 (within LM_CARD_F32_TOL, LM_CARD_F32_CAP where not listed).
@@ -1026,12 +1195,218 @@ def card_vs_cpu(np, torch, arch, chunk, b, s):
     return out
 
 
+def decode_after_prompts(np, torch, model, steps, smi):
+    """B = 1 prompts of each MAMBA_PROMPTS length, each prefilled and
+    decoded ``steps`` greedy steps (timed after a warm-up): the SSM
+    state has a fixed size, so a decode step should not cost more after
+    a longer prompt.  Prints one line."""
+    parts = []
+    for n in MAMBA_PROMPTS:
+        batch = lm_batch(model.cfg, 1, n, SEED + n, np)
+        serve(torch, model, batch, 2, n + 2, n)            # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        _, pre_s, dec_s = serve(torch, model, batch, steps, n + steps, n)
+        parts.append(f"{n}-token prompt: prefill {pre_s * 1e3:.2f} ms, "
+                     f"decode {dec_s * 1e3 / steps:.3f} ms/step, peak "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"lm {model.cfg.name} B=1: " + "; ".join(parts) + f" ({smi})")
+
+
+def mesh_layers(np, torch, lm, blocks, params, cfg, rt, tok, caches,
+                shards, pos, mesh):
+    """One decode step layer by layer, each layer fed the unsharded
+    step's input for it, on the whole caches and on their shards.
+    Returns the worst layer's relative deviation."""
+    with torch.no_grad():
+        x = lm.apply_embed(params["embed"], tok) * cfg.scale_emb
+        worst = 0.0
+        for i in range(cfg.n_layers):
+            lp = blocks.layer(params["blocks"], i)
+            yw, _ = blocks.apply_block_decode(
+                lp, x, blocks.layer(caches, i), pos, cfg, rt)
+            ys, _ = blocks.apply_block_decode(
+                lp, x, blocks.layer(shards, i), pos, cfg, rt, mesh=mesh)
+            worst = max(worst, rel_err(ys, yw, None, np))
+            x = yw
+    return worst
+
+
+def mesh_decode(np, torch, lm, blocks, module, model, smi):
+    """11h: ``model``'s decode over each MESH_CASES mesh of cuda:0
+    repeated against its unsharded decode, teacher-forced MESH_STEPS
+    steps after a 512-token prompt, in float64 (gated on the logits)
+    and float32 (gated layer by layer at the first step; the logits
+    printed); the float32 steps timed both ways.  One line a mesh."""
+    from repro_torch.launch.mesh import device_mesh
+
+    cfg, rt = model.cfg, model.rt
+    n_in = 512
+    toks = lm_batch(cfg, 4, n_in + MESH_STEPS, SEED + 3, np)["tokens"]
+    trees = {torch.float32: model.tree(),
+             torch.float64: module.tree_map(lambda t: t.double(),
+                                            model.tree())}
+    for size, b in MESH_CASES:
+        mesh = device_mesh(["cuda:0"] * 4, model=size)
+        lay = lm.attention.decode_shards(mesh, b)
+        res = {}
+        for dtype, params in trees.items():
+            with torch.no_grad():
+                _, caches = lm.prefill(params, {"tokens": toks[:b, :n_in]},
+                                       cfg, rt, n_in + MESH_STEPS)
+                shards = lm.shard_caches(caches, cfg, mesh, b)
+                layer = None
+                if dtype == torch.float32:
+                    layer = mesh_layers(
+                        np, torch, lm, blocks, params, cfg, rt,
+                        torch.as_tensor(toks[:b, n_in:n_in + 1],
+                                        device="cuda"),
+                        module.tree_map(torch.clone, caches),
+                        module.tree_map(torch.clone, shards), n_in, mesh)
+                err, walls = 0.0, {"whole": 0.0, "mesh": 0.0}
+                for i in range(MESH_STEPS):
+                    tok = toks[:b, n_in + i:n_in + i + 1]
+                    outs = {}
+                    for name, c, m in (("whole", caches, None),
+                                       ("mesh", shards, mesh)):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        outs[name], _ = lm.decode_step(
+                            params, tok, c, n_in + i, cfg, rt, mesh=m)
+                        torch.cuda.synchronize()
+                        walls[name] += time.perf_counter() - t0
+                    err = max(err, rel_err(outs["mesh"], outs["whole"],
+                                           cfg.vocab, np))
+                got = [t for _, t in module.leaves_with_path(
+                    lm.gather_caches(shards, cfg, mesh, b))]
+                want = [t for _, t in module.leaves_with_path(caches)]
+                same = all(torch.equal(g[..., :n_in, :], w[..., :n_in, :])
+                           for g, w in zip(got, want))
+                cerr = max(rel_err(g, w, None, np) for g, w in zip(got, want))
+            res[dtype] = (err, layer, walls, same, cerr)
+        e64, _, _, same64, c64 = res[torch.float64]
+        e32, layer, walls, same32, _ = res[torch.float32]
+        check(e64 <= MESH_F64_TOL and c64 <= MESH_F64_TOL
+              and layer <= LM_LAYER_TOL and same64 and same32,
+              f"{cfg.name} mesh decode (model {size}, B={b}): float64 "
+              f"logits {e64:.3e} and caches {c64:.3e} from unsharded "
+              f"(bound {MESH_F64_TOL}), float32 worst layer {layer:.3e} "
+              f"(bound {LM_LAYER_TOL}), prompt slots equal {same64}, "
+              f"{same32}")
+        print(f"lm {cfg.name} mesh decode over cuda:0 x 4 (data "
+              f"{4 // size}, model {size}), B={b}, {n_in}-token prompt, "
+              f"{MESH_STEPS} forced steps: sequence over "
+              f"{'x'.join(lay.seq_axes)} ({lay.n_seq} shards), batch over "
+              f"{'x'.join(lay.dp_axes) or 'nothing'}; vs unsharded: "
+              f"float64 logits {e64:.3e}, float32 worst layer "
+              f"{layer:.3e}, float32 logits {e32:.3e} (not gated), "
+              f"float64 caches {c64:.3e}, prompt slots bitwise equal; "
+              f"f32 decode "
+              f"{walls['mesh'] * 1e3 / MESH_STEPS:.3f} ms/step sharded, "
+              f"{walls['whole'] * 1e3 / MESH_STEPS:.3f} unsharded ({smi})")
+
+
+def mla_mesh_card_vs_cpu(np, torch):
+    """minicpm3-4b reduced: the absorbed-MLA decode over a mesh on the
+    card (cuda:0 x 4) against the same over ["cpu"] * 4, both layouts,
+    two steps after a 15-token prompt, within 11c's bounds.  Returns
+    {(model, batch): (float64, float32) worst logits error}."""
+    import repro_torch.configs as configs
+    from repro_torch.configs.base import RunSpec
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import lm, module
+
+    cfg = configs.get("minicpm3-4b", reduced=True)
+    rt = RunSpec(attn_chunk=64)
+    params = module.init(lm.param_defs(cfg, rt), device="cpu",
+                         generator=SEED)
+    toks = lm_batch(cfg, 4, 17, SEED, np)["tokens"]
+    out = {}
+    for size, b in ((2, 4), (2, 1)):
+        runs = {}
+        for dev in ("cpu", "cuda:0"):
+            for dtype in (torch.float64, torch.float32):
+                tree = module.tree_map(lambda t: t.to(dev, dtype), params)
+                mesh = device_mesh([dev] * 4, model=size)
+                with torch.no_grad():
+                    _, caches = lm.prefill(tree, {"tokens": toks[:b, :15]},
+                                           cfg, rt, 32)
+                    shards = lm.shard_caches(caches, cfg, mesh, b)
+                    steps = []
+                    for pos in (15, 16):
+                        logits, shards = lm.decode_step(
+                            tree, toks[:b, pos:pos + 1], shards, pos, cfg,
+                            rt, mesh=mesh)
+                        steps.append(logits)
+                runs[dev, dtype] = steps
+        errs = tuple(max(rel_err(g, w, cfg.vocab, np) for g, w in zip(
+            runs["cuda:0", t], runs["cpu", t]))
+            for t in (torch.float64, torch.float32))
+        check(errs[0] <= LM_CARD_F64_TOL and errs[1] <= LM_CARD_F32_CAP,
+              f"minicpm3-4b reduced MLA mesh decode (model {size}, B={b}): "
+              f"card {errs[0]:.3e} / {errs[1]:.3e} from the CPU")
+        out[size, b] = errs
+    return out
+
+
+def families_phase(np, torch, lm, blocks, module, served, smi, sub_done):
+    """11e-11h: qwen3-moe-30b-a3b (MOE_LAYERS layers), mamba2-2.7b and
+    zamba2-1.2b at published width, each served and gated layer by
+    layer as 11a is; mamba2's decode after short and long prompts; the
+    mesh decode of qwen1.5-0.5b and of MLA."""
+    import dataclasses
+
+    cases = {a: (b, s, n) for a, b, s, n in LM_FAMILIES_SERVED}
+
+    # -- 11e: qwen3-moe-30b-a3b, 12 of 48 layers ------------------------
+    b, s, steps = cases["qwen3-moe-30b-a3b"]
+    model = served("qwen3-moe-30b-a3b", n_layers=MOE_LAYERS)
+    whole = module.count_params(lm.param_defs(
+        dataclasses.replace(model.cfg, n_layers=48), model.rt))
+    print(f"lm qwen3-moe-30b-a3b: {MOE_LAYERS} of its 48 layers (48 "
+          f"layers: {whole / 1e9:.2f} B params, {whole * 4 / 1e9:.1f} GB "
+          f"in f32, past the card's 80 GB)")
+    serve_full_width(np, torch, lm, blocks, module, model,
+                     lm_batch(model.cfg, b, s, SEED, np), steps, smi,
+                     gate_rt=dataclasses.replace(
+                         model.rt, capacity_factor=MOE_GATE_CF))
+    del model
+    sub_done("11e")
+
+    # -- 11f: mamba2-2.7b ------------------------------------------------
+    b, s, steps = cases["mamba2-2.7b"]
+    model = served("mamba2-2.7b")
+    serve_full_width(np, torch, lm, blocks, module, model,
+                     lm_batch(model.cfg, b, s, SEED, np), steps, smi)
+    decode_after_prompts(np, torch, model, steps, smi)
+    del model
+    sub_done("11f")
+
+    # -- 11g: zamba2-1.2b ------------------------------------------------
+    b, s, steps = cases["zamba2-1.2b"]
+    model = served("zamba2-1.2b")
+    serve_full_width(np, torch, lm, blocks, module, model,
+                     lm_batch(model.cfg, b, s, SEED, np), steps, smi)
+    del model
+    sub_done("11g")
+
+    # -- 11h: the sequence-sharded decode --------------------------------
+    model = served("qwen1.5-0.5b")
+    mesh_decode(np, torch, lm, blocks, module, model, smi)
+    del model
+    torch.cuda.empty_cache()
+    for (size, b), (e64, e32) in mla_mesh_card_vs_cpu(np, torch).items():
+        print(f"lm minicpm3-4b reduced MLA mesh decode (model {size}, "
+              f"B={b}): card vs CPU float64 {e64:.2e}, float32 {e32:.2e}")
+    sub_done("11h")
+
+
 def phase11(np, torch, sets, counters, smi):
     """Phase 11: qwen1.5-0.5b, seamless-m4t-large-v2 (over K5 frames of a
     paper record), minicpm3-4b (MLA) and internvl2-1b (the VLM prefix)
     served at their published widths through ``LanguageModel``, seeded
-    float32 weights (11a, 11b, 11d); then the attention archs at their
-    reduced configs on the card against the CPU (11c).  Returns the
+    float32 weights (11a, 11b, 11d); the other families and the mesh
+    decode (11e-11h, ``families_phase``); then every arch at its
+    reduced config on the card against the CPU (11c).  Returns the
     launches per kernel, counted from the start of the phase to its
     end."""
     import dataclasses
@@ -1129,11 +1504,11 @@ def phase11(np, torch, sets, counters, smi):
     torch.cuda.empty_cache()
     sub_done("11d")
 
-    # -- 11c: the reduced attention archs, card against CPU --------------
+    families_phase(np, torch, lm, blocks, module, served, smi, sub_done)
+
+    # -- 11c: the reduced archs, card against CPU ---------------------------
     for arch in configs.ARCHS:
-        if configs.get(arch, reduced=True).family not in lm.FAMILIES:
-            continue
-        for chunk, b, s in LM_CARD_CASES:
+        for chunk, b, s in lm_card_cases(configs.get(arch)):
             errs = card_vs_cpu(np, torch, arch, chunk, b, s)
             print(f"lm {arch} reduced, {b}x{s} tokens, attn_chunk {chunk}: "
                   f"card vs CPU float64 / float32 (CPU float32 vs float64) "

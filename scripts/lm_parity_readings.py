@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """The readings behind tests/test_torch_models.py's parity bounds.
 
-For each attention arch at its reduced config and each attention branch
+For each arch at its reduced config and each attention branch
 (one-shot: 2 x 16 tokens, attn_chunk 64; scanned: 2100 tokens,
-attn_chunk 512, 1050 tokens over 2100 frames for the audio backbone),
+attn_chunk 512, 1050 tokens over 2100 frames for the audio backbone;
+the SSM arch, which has no attention, one-shot only),
 on the test's own weights and inputs, prints one JSON line with the
 worst relative error over forward, prefill, decode and every cache leaf
 of:
@@ -14,7 +15,7 @@ of:
   port32_vs_port64  the port's float32 against its float64
 
 The scanned branch's float32 reference runs op by op, as in the tests.
-JAX on the CPU; about 3 minutes.
+JAX on the CPU; about 8 minutes.
 
 Usage: PYTHONPATH=src python scripts/lm_parity_readings.py
        [one-shot|scanned] [arch ...]
@@ -39,8 +40,9 @@ def worst(a, b, v):
 
 def main(argv):
     branches = [argv[0]] if argv else list(T.BRANCHES)
-    archs = argv[1:] or T.ARCHS
     for branch in branches:
+        archs = argv[1:] or (T.ATTN_ARCHS if branch == "scanned"
+                             else T.ARCHS)
         for arch in archs:
             case = T.Case(arch, branch)
             arrays, params = case.reference_weights()

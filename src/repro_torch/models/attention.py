@@ -7,30 +7,35 @@
 
 * decode -- the KV cache keeps LOGICAL kv heads, (B, KV, S_max, hd), and
   one new token attends over it with the (max, sum, weighted-value)
-  flash-decode reduction.  The reference shards the cache's sequence
-  axis over a mesh (``mesh=``); the port serves on one device, and
-  ``mesh=`` raises (ROADMAP A9b).
+  flash-decode reduction.  With ``mesh=`` (a ``launch.mesh.HostMesh``)
+  the cache's sequence axis is split over the mesh (``decode_layout``):
+  one tensor per shard, on that shard's device (``DecodeShards.split``).  Each
+  shard's body runs the reference's two rounds: its local max, the
+  global max sent back to it (the reference's ``pmax``), then its
+  exponentials against that max, whose sums and weighted values are
+  added in shard order on the mesh's first device (the ``psum``).
 
 Memory-efficient prefill attention scans over KV chunks with an online
 softmax, so peak score memory is (S_q * chunk), never (S_q * S_kv).  The
 port computes this softmax itself, branch for branch as the reference
 does, rather than calling ``scaled_dot_product_attention``.
 
-The decode cache is written in place: one (B, KV, 1, hd) slot per step.
+The decode cache is written in place: one (B, KV, 1, hd) slot per step,
+on the shard that owns the slot.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunSpec
 from .layers import apply_rope, rope_angles, upcast
-from .module import ParamDef
+from .module import ParamDef, tree_map
 
 NEG_INF = -1e30
-_NO_MESH = ("the sequence-sharded decode over a mesh is not ported; the "
-            "port serves on one device (ROADMAP A9b)")
 
 
 # ---------------------------------------------------------------- params
@@ -185,24 +190,152 @@ def apply_attn(p, x, cfg: ModelConfig, rt: RunSpec, *,
 
 
 # ------------------------------------------------------ flash decode
+def decode_layout(mesh, batch: int, seq_axis: str = "model"):
+    """Choose (dp_axes, seq_axes) for the decode cache.
+
+    Normal serving: batch over the data axes, sequence over 'model'.
+    Long context (batch smaller than the data axes): batch replicated,
+    sequence split over EVERY mesh axis."""
+    dp = tuple(a for a in mesh.axis_names if a != seq_axis)
+    dp_size = 1
+    for a in dp:
+        dp_size *= mesh.shape[a]
+    if batch % max(dp_size, 1) == 0 and batch >= dp_size:
+        return dp, (seq_axis,)
+    return (), tuple(mesh.axis_names)
+
+
+def _multi_axis_index(mesh, axes, coord: dict) -> int:
+    """The shard index of mesh coordinate ``coord`` over ``axes``, the
+    first axis slowest (the reference's ``axis_index`` product)."""
+    idx = coord[axes[0]]
+    for a in axes[1:]:
+        idx = idx * mesh.shape[a] + coord[a]
+    return idx
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeShards:
+    """Where each mesh position's cache shard lives: ``shards`` lists,
+    in the mesh's row-major order, (device, batch rows, data index,
+    sequence index); ``groups`` the positions of each data index in
+    sequence order (one ``pmax``/``psum`` group each)."""
+
+    dp_axes: tuple
+    seq_axes: tuple
+    n_seq: int
+    shards: tuple
+    groups: tuple
+
+    @property
+    def device(self) -> torch.device:
+        return self.shards[0][0]
+
+    def split(self, buf: torch.Tensor) -> list:
+        """(..., B, KV, S, D) -> one copy of each shard's block, on its
+        device."""
+        if buf.shape[-2] % self.n_seq:
+            raise ValueError(
+                f"a cache of {buf.shape[-2]} positions does not split into "
+                f"{self.n_seq} equal sequence shards")
+        s_loc = buf.shape[-2] // self.n_seq
+        return [buf[..., rows, :, si * s_loc:(si + 1) * s_loc, :]
+                .to(dev, copy=True).contiguous()
+                for dev, rows, _, si in self.shards]
+
+    def gather(self, parts: list) -> torch.Tensor:
+        """The inverse of ``split``, on the mesh's first device."""
+        s_loc = parts[0].shape[-2]
+        shape = list(parts[0].shape)
+        shape[-4] = self.shards[-1][1].stop
+        shape[-2] = s_loc * self.n_seq
+        out = parts[0].new_empty(shape, device=self.device)
+        for (_, rows, _, si), part in zip(self.shards, parts):
+            out[..., rows, :, si * s_loc:(si + 1) * s_loc, :] = part.to(
+                self.device)
+        return out
+
+    def run(self, bodies: list) -> list:
+        """Drive one shard body per position in lock step.  A body
+        yields ``("max" | "sum", value)`` at each collective; the values
+        of its group are combined in sequence order on the first device
+        and sent back to each member on its own device.  Returns the
+        bodies' return values."""
+        vals = [next(b) for b in bodies]
+        while True:
+            sent = [None] * len(bodies)
+            for members in self.groups:
+                op = torch.maximum if vals[members[0]][0] == "max" \
+                    else torch.add
+                red = None
+                for i in members:
+                    v = tree_map(lambda t: t.to(self.device), vals[i][1])
+                    red = v if red is None else tree_map(op, red, v)
+                for i in members:
+                    dev = self.shards[i][0]
+                    sent[i] = tree_map(lambda t: t.to(dev), red)
+            done, nxt = [], []
+            for b, v in zip(bodies, sent):
+                try:
+                    nxt.append(b.send(v))
+                except StopIteration as e:   # every body ends together
+                    done.append(e.value)
+            if done:
+                return done
+            vals = nxt
+
+    def outputs(self, results: list, device) -> torch.Tensor:
+        """Each data group's output (the same on all its members),
+        concatenated over the batch on ``device``."""
+        return torch.cat([results[g[0]][0].to(device) for g in self.groups])
+
+
+def decode_shards(mesh, batch: int, seq_axis: str = "model") -> DecodeShards:
+    """The decode cache's layout over ``mesh`` for ``batch`` rows."""
+    dp_axes, seq_axes = decode_layout(mesh, batch, seq_axis)
+    dp_size = 1
+    for a in dp_axes:
+        dp_size *= mesh.shape[a]
+    n_seq = 1
+    for a in seq_axes:
+        n_seq *= mesh.shape[a]
+    b_loc = batch // dp_size
+    shards = []
+    for flat, dev in enumerate(mesh.devices.flat):
+        coord = dict(zip(mesh.axis_names,
+                         np.unravel_index(flat, mesh.devices.shape)))
+        di = _multi_axis_index(mesh, dp_axes, coord) if dp_axes else 0
+        si = _multi_axis_index(mesh, seq_axes, coord)
+        shards.append((torch.device(dev), slice(di * b_loc, (di + 1) * b_loc),
+                       int(di), int(si)))
+    groups = tuple(
+        tuple(sorted((i for i, s in enumerate(shards) if s[2] == di),
+                     key=lambda i: shards[i][3]))
+        for di in range(dp_size))
+    return DecodeShards(dp_axes, seq_axes, n_seq, tuple(shards), groups)
+
+
 def _write_slot(buf, new, pos: int, s_loc: int, shard_idx: int = 0):
     """Write ``new`` (B, KV, D) into slot ``pos`` of ``buf`` (B, KV, S, D)
-    in place; a slot outside this shard's [0, s_loc) writes nothing."""
+    in place; a slot outside this shard's [0, s_loc) writes nothing (the
+    reference's ``own`` mask)."""
     local_pos = pos - shard_idx * s_loc
     if 0 <= local_pos < s_loc:
         buf[:, :, local_pos] = new.to(buf.dtype)
 
 
-def flash_decode_local(q, k, v, new_k, new_v, pos, shard_idx, s_loc,
-                       *, axis=None, kmap=None, scale):
-    """Decode attention over one cache slice.
+def _alone(body):
+    """Run a shard body with no mesh: every collective is the identity."""
+    _, val = next(body)
+    try:
+        while True:
+            _, val = body.send(val)
+    except StopIteration as e:
+        return e.value
 
-    q (B,H,hd); k,v (B,KV,S_loc,hd), updated in place; new_k/new_v
-    (B,KV,hd); pos int; kmap (H,) kv head per q head, or None for the
-    identity.  Returns (out (B,H,hd), k, v).
-    """
-    if axis is not None:
-        raise NotImplementedError(_NO_MESH)
+
+def _flash_body(q, k, v, new_k, new_v, pos, shard_idx, s_loc, *, kmap,
+                scale):
     pos = int(pos)
     _write_slot(k, new_k, pos, s_loc, shard_idx)
     _write_slot(v, new_v, pos, s_loc, shard_idx)
@@ -212,23 +345,37 @@ def flash_decode_local(q, k, v, new_k, new_v, pos, shard_idx, s_loc,
     sc = torch.einsum("bhd,bhsd->bhs", upcast(q) * scale, upcast(kq))
     spos = shard_idx * s_loc + torch.arange(s_loc, device=q.device)
     sc = torch.where(spos[None, None, :] <= pos, sc, NEG_INF)
-    m = torch.amax(sc, dim=-1)
+    m = yield "max", torch.amax(sc, dim=-1)
     pexp = torch.exp(sc - m[..., None])
-    l = torch.sum(pexp, dim=-1)
-    o = torch.einsum("bhs,bhsd->bhd", pexp, upcast(vq))
+    l, o = yield "sum", (torch.sum(pexp, dim=-1),
+                         torch.einsum("bhs,bhsd->bhd", pexp, upcast(vq)))
     out = (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     return out, k, v
+
+
+def flash_decode_local(q, k, v, new_k, new_v, pos, shard_idx, s_loc,
+                       *, axis=None, kmap=None, scale):
+    """Decode attention over one cache slice.
+
+    q (B,H,hd); k,v (B,KV,S_loc,hd), updated in place; new_k/new_v
+    (B,KV,hd); pos int; kmap (H,) kv head per q head, or None for the
+    identity.  Returns (out (B,H,hd), k, v).  With ``axis`` (the mesh
+    path) it returns the shard's body instead, which
+    ``DecodeShards.run`` drives in lock step with the other shards'.
+    """
+    body = _flash_body(q, k, v, new_k, new_v, pos, shard_idx, s_loc,
+                       kmap=kmap, scale=scale)
+    return body if axis is not None else _alone(body)
 
 
 def decode_attn(p, x, cache, pos, cfg: ModelConfig, rt: RunSpec, *,
                 mesh=None, seq_axis: str = "model"):
     """One-token decode against a logical-KV cache.
 
-    x (B,1,d); cache (k,v) each (B,KV,S_max,hd), written in place.
-    pos: int current position.  Returns (out (B,1,d), cache).
+    x (B,1,d); cache (k,v) each (B,KV,S_max,hd), written in place -- with
+    ``mesh``, each a list of shards (``DecodeShards.split``).  pos: int current
+    position.  Returns (out (B,1,d), cache).
     """
-    if mesh is not None and seq_axis is not None:
-        raise NotImplementedError(_NO_MESH)
     hd = cfg.hd
     q = _proj(x, p["wq"])
     k_new = _proj(x, p["wk"])
@@ -246,12 +393,26 @@ def decode_attn(p, x, cache, pos, cfg: ModelConfig, rt: RunSpec, *,
     k_new, v_new = k_new[:, 0], v_new[:, 0]
 
     one = RunSpec(tp=1)
-    kmap = (None if cfg.n_heads == cfg.n_kv_heads
-            else kv_map(cfg, one, x.device)[: cfg.n_heads])
+
+    def kmap(dev):
+        return (None if cfg.n_heads == cfg.n_kv_heads
+                else kv_map(cfg, one, dev)[: cfg.n_heads])
+
     k, v = cache
-    out, k, v = flash_decode_local(
-        q, k, v, k_new, v_new, pos, 0, k.shape[2], kmap=kmap,
-        scale=1.0 / math.sqrt(hd))
+    scale = 1.0 / math.sqrt(hd)
+    if mesh is None or seq_axis is None:
+        out, k, v = flash_decode_local(
+            q, k, v, k_new, v_new, pos, 0, k.shape[2], kmap=kmap(x.device),
+            scale=scale)
+    else:
+        lay = decode_shards(mesh, q.shape[0], seq_axis)
+        s_loc = k[0].shape[2]
+        bodies = [flash_decode_local(
+            q[rows].to(dev), k[i], v[i], k_new[rows].to(dev),
+            v_new[rows].to(dev), pos, si, s_loc, axis=lay.seq_axes,
+            kmap=kmap(dev), scale=scale)
+            for i, (dev, rows, _, si) in enumerate(lay.shards)]
+        out = lay.outputs(lay.run(bodies), x.device)
     out = _out(out, p["wo"][: cfg.n_heads])[:, None, :]
     if "bo" in p:
         out = out + p["bo"]
@@ -304,31 +465,36 @@ def apply_mla(p, x, cfg: ModelConfig, rt: RunSpec, *, positions):
     return out, cache
 
 
-def _mla_flash_local(q, ck, new_ck, pos, shard_idx, s_loc, *,
-                     axis: str | None = None, kvr: int, scale: float):
-    """Absorbed-MLA decode body. q (B,H,kvr+rope); ck (B,1,S_loc,kvr+rope),
-    updated in place; new_ck (B,1,kvr+rope)."""
-    if axis is not None:
-        raise NotImplementedError(_NO_MESH)
+def _mla_body(q, ck, new_ck, pos, shard_idx, s_loc, *, kvr, scale):
     pos = int(pos)
     _write_slot(ck, new_ck, pos, s_loc, shard_idx)
     sc = torch.einsum("bhe,bse->bhs", upcast(q) * scale,
                       upcast(ck[:, 0]))
     spos = shard_idx * s_loc + torch.arange(s_loc, device=q.device)
     sc = torch.where(spos[None, None, :] <= pos, sc, NEG_INF)
-    m = torch.amax(sc, dim=-1)
+    m = yield "max", torch.amax(sc, dim=-1)
     pexp = torch.exp(sc - m[..., None])
-    l = torch.sum(pexp, dim=-1)
-    o = torch.einsum("bhs,bsr->bhr", pexp, upcast(ck[:, 0, :, :kvr]))
+    l, o = yield "sum", (torch.sum(pexp, dim=-1),
+                         torch.einsum("bhs,bsr->bhr", pexp,
+                                      upcast(ck[:, 0, :, :kvr])))
     out = (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     return out, ck
 
 
+def _mla_flash_local(q, ck, new_ck, pos, shard_idx, s_loc, *,
+                     axis: str | None = None, kvr: int, scale: float):
+    """Absorbed-MLA decode body. q (B,H,kvr+rope); ck (B,1,S_loc,kvr+rope),
+    updated in place; new_ck (B,1,kvr+rope).  Returns (out, ck), or with
+    ``axis`` the shard's body (see ``flash_decode_local``)."""
+    body = _mla_body(q, ck, new_ck, pos, shard_idx, s_loc, kvr=kvr,
+                     scale=scale)
+    return body if axis is not None else _alone(body)
+
+
 def mla_decode(p, x, cache, pos, cfg: ModelConfig, rt: RunSpec, *,
                mesh=None, seq_axis: str = "model"):
-    """One-token absorbed-MLA decode over the latent cache (in place)."""
-    if mesh is not None and seq_axis is not None:
-        raise NotImplementedError(_NO_MESH)
+    """One-token absorbed-MLA decode over the latent cache (in place;
+    with ``mesh``, a list of sequence shards)."""
     nope, kvr = cfg.qk_nope_dim, cfg.kv_lora_rank
     h = cfg.n_heads
     posv = torch.full((x.shape[0], 1), int(pos), device=x.device)
@@ -342,8 +508,18 @@ def mla_decode(p, x, cache, pos, cfg: ModelConfig, rt: RunSpec, *,
     q_lat = torch.einsum("bhn,rhn->bhr", q_nope, w_uk)
     q = torch.cat([q_lat, q_rope], dim=-1)                   # (B,H,kvr+rope)
     scale = 1.0 / math.sqrt(nope + cfg.qk_rope_dim)
-    out, ck = _mla_flash_local(q, cache, new_ck, pos, 0, cache.shape[2],
-                               kvr=kvr, scale=scale)
+    if mesh is None or seq_axis is None:
+        out, ck = _mla_flash_local(q, cache, new_ck, pos, 0,
+                                   cache.shape[2], kvr=kvr, scale=scale)
+    else:
+        lay = decode_shards(mesh, q.shape[0], seq_axis)
+        s_loc = cache[0].shape[2]
+        bodies = [_mla_flash_local(
+            q[rows].to(dev), cache[i], new_ck[rows].to(dev), pos, si, s_loc,
+            axis=lay.seq_axes, kvr=kvr, scale=scale)
+            for i, (dev, rows, _, si) in enumerate(lay.shards)]
+        out = lay.outputs(lay.run(bodies), x.device)
+        ck = cache
 
     # absorb W_UV: out[b,h,e] = sum_r out_lat[b,h,r] * wkv_b[r,h,nope+e]
     w_uv = p["wkv_b"][..., nope:][:, :h]                     # (kvr,H,vd)

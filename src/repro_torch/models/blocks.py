@@ -1,4 +1,4 @@
-"""Transformer blocks and layer stacks.
+"""Transformer / Mamba blocks and layer stacks.
 
 A stack's parameters carry a leading layer axis (``module.stack``); the
 reference scans over it with ``lax.scan``, the port loops over the layer
@@ -10,27 +10,30 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunSpec
-from . import attention
+from . import attention, mamba2, moe
 from .layers import apply_mlp, apply_norm, mlp_defs, norm_defs, upcast
 from .module import stack, tree_map
-
-NEXT_SLICE = "ROADMAP A9b"
 
 
 # ------------------------------------------------------------ attn block
 def block_defs(cfg: ModelConfig, rt: RunSpec, cross: bool = False) -> dict:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE feed-forward (models/moe.py) is not "
-            f"ported yet ({NEXT_SLICE})")
     d = cfg.d_model
     defs = {"norm1": norm_defs(d), "norm2": norm_defs(d),
             "attn": attention.attn_defs(cfg, rt)}
     if cross:
         defs["norm_x"] = norm_defs(d)
         defs["xattn"] = attention.attn_defs(cfg, rt, cross=True)
-    defs["ffn"] = mlp_defs(d, cfg.d_ff, cfg.mlp, cfg.mlp_bias)
+    if cfg.n_experts:
+        defs["ffn"] = moe.moe_defs(cfg, rt)
+    else:
+        defs["ffn"] = mlp_defs(d, cfg.d_ff, cfg.mlp, cfg.mlp_bias)
     return defs
+
+
+def _ffn(p, h, cfg: ModelConfig, rt: RunSpec):
+    if cfg.n_experts:
+        return moe.apply_moe(p, h, cfg, rt)
+    return apply_mlp(p, h, cfg.mlp)
 
 
 def apply_block(p, x, cfg: ModelConfig, rt: RunSpec, *, positions,
@@ -53,7 +56,7 @@ def apply_block(p, x, cfg: ModelConfig, rt: RunSpec, *, positions,
         x = x + a * rs
         cache = (cache, xcache)
     h = apply_norm(p["norm2"], x, cfg.norm)
-    return x + apply_mlp(p["ffn"], h, cfg.mlp) * rs, cache
+    return x + _ffn(p["ffn"], h, cfg, rt) * rs, cache
 
 
 def apply_block_decode(p, x, cache, pos, cfg: ModelConfig, rt: RunSpec, *,
@@ -87,7 +90,25 @@ def apply_block_decode(p, x, cache, pos, cfg: ModelConfig, rt: RunSpec, *,
         x = x + a * rs
         cache = (cache, xcache)
     h = apply_norm(p["norm2"], x, cfg.norm)
-    return x + apply_mlp(p["ffn"], h, cfg.mlp) * rs, cache
+    return x + _ffn(p["ffn"], h, cfg, rt) * rs, cache
+
+
+# ----------------------------------------------------------- mamba block
+def mamba_block_defs(cfg: ModelConfig, rt: RunSpec) -> dict:
+    return {"norm": norm_defs(cfg.d_model),
+            "mixer": mamba2.mamba_defs(cfg, rt)}
+
+
+def apply_mamba_block(p, x, cfg, rt, cache=None):
+    h = apply_norm(p["norm"], x, cfg.norm)
+    out, cache = mamba2.apply_mamba(p["mixer"], h, cfg, rt, cache)
+    return x + out, cache
+
+
+def apply_mamba_block_decode(p, x, cache, cfg, rt):
+    h = apply_norm(p["norm"], x, cfg.norm)
+    out, cache = mamba2.mamba_decode(p["mixer"], h, cache, cfg, rt)
+    return x + out, cache
 
 
 # ------------------------------------------------------------- stacks

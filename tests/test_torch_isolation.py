@@ -39,6 +39,7 @@ def test_import_leaves_out_jax_and_reference():
         "import repro_torch.api.formats\n"
         "import repro_torch.configs, repro_torch.models.lm\n"
         "import repro_torch.models.attention\n"
+        "import repro_torch.models.moe, repro_torch.models.mamba2\n"
         "[repro_torch.configs.get(a) for a in repro_torch.configs.ARCHS]\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -80,6 +81,8 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "src/repro_torch/models/attention.py",
             "src/repro_torch/models/blocks.py",
             "src/repro_torch/models/lm.py",
+            "src/repro_torch/models/moe.py",
+            "src/repro_torch/models/mamba2.py",
             "scripts/torch_chaos_smoke.py"} <= names
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in FORBIDDEN.finditer(f.read_text())]

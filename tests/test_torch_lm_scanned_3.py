@@ -1,13 +1,13 @@
-"""The scanned branch for the last two attention archs (see
-tests/test_torch_lm_scanned.py)."""
+"""The scanned branch for two more attention archs (see
+tests/test_torch_lm_scanned.py); tests/test_torch_lm_scanned_4.py takes
+the MoE and hybrid archs."""
 import pytest
 
-from test_torch_lm_scanned import SCANNED_1
-from test_torch_lm_scanned_2 import SCANNED_2
-from test_torch_models import ARCHS, check_serving_path
+from test_torch_models import check_serving_path
+
+SCANNED_3 = ["internvl2-1b", "seamless-m4t-large-v2"]
 
 
-@pytest.mark.parametrize(
-    "arch", [a for a in ARCHS if a not in SCANNED_1 + SCANNED_2])
+@pytest.mark.parametrize("arch", SCANNED_3)
 def test_scanned_serving_path_matches_reference(arch):
     check_serving_path(arch, "scanned", eager=True)

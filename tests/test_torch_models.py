@@ -50,6 +50,8 @@ from repro.models import attention as jattention
 from repro.models import blocks as jblocks
 from repro.models import layers as jlayers
 from repro.models import lm as jlm
+from repro.models import mamba2 as jmamba2
+from repro.models import moe as jmoe
 import repro_torch.configs as configs
 from repro_torch.configs.base import RunSpec
 from repro_torch.models import blocks, lm, module
@@ -66,6 +68,10 @@ F64_TOL = 1e-10
 #   qwen1.5-0.5b           5.6e-6 / 4.8e-6      7.0e-4 / 9.3e-5
 #   internvl2-1b           3.3e-5 / 3.6e-5      2.8e-3 / 2.9e-4
 #   seamless-m4t-large-v2  7.4e-4 / 8.4e-4      6.3e-2 / 4.1e-3
+#   qwen3-moe-30b-a3b      5.0e-7 / 5.9e-7      1.5e-5 / 1.0e-6
+#   arctic-480b            1.3e-5 / 1.3e-5      4.6e-4 / 5.2e-5
+#   mamba2-2.7b            2.1e-6 / 2.2e-6      (no attention)
+#   zamba2-1.2b            6.1e-5 / 2.8e-5      3.6e-3 / 1.1e-4
 F32_TOL = {
     ("internlm2-20b", "scanned"): 7e-4,
     ("starcoder2-7b", "scanned"): 2e-3,
@@ -73,12 +79,20 @@ F32_TOL = {
     ("internvl2-1b", "scanned"): 9e-4,
     ("seamless-m4t-large-v2", "one-shot"): 3e-3,
     ("seamless-m4t-large-v2", "scanned"): 2e-2,
+    ("arctic-480b", "scanned"): 2e-4,
+    ("zamba2-1.2b", "scanned"): 4e-4,
 }
 F32_CAP = 1e-4
-# the attention families' archs (moe, ssm and hybrid come with ROADMAP A9b)
+# every arch of every family the port serves
 ARCHS = [a for a in configs.ARCHS
          if configs.get(a).family in lm.FAMILIES]
-DEFERRED = [a for a in configs.ARCHS if a not in ARCHS]
+# the archs with attention (the scanned/one-shot branches); ssm has none
+ATTN_ARCHS = [a for a in ARCHS if configs.get(a).family != "ssm"]
+# stacks of attention blocks; and of mamba blocks (with the hybrid's
+# shared attention sites)
+BLOCK_ARCHS = [a for a in ARCHS
+               if configs.get(a).family not in ("ssm", "hybrid")]
+SSM_ARCHS = [a for a in ARCHS if a not in BLOCK_ARCHS]
 S = 16
 # (attn_chunk, batch, tokens): one-shot attention; the scanned online
 # softmax, which runs only past max(chunk, 2048) keys (2100 = 4 chunks of
@@ -91,6 +105,16 @@ BRANCHES = {"one-shot": (64, 2, S), "scanned": (512, 1, 2100)}
 def rt_pair(**kw):
     kw = {"tp": 1, "remat": "none", "attn_chunk": 64, **kw}
     return JRunSpec(**kw), RunSpec(**kw)
+
+
+def drop_free(cfg, rt):
+    """``rt`` with an MoE's capacity at the whole batch: capacity depends
+    on the tokens of a call by design, so prefill and decode drop
+    different assignments unless none drops (the reference's
+    test_decode_matches_forward does the same)."""
+    if not cfg.n_experts:
+        return rt
+    return dataclasses.replace(rt, capacity_factor=float(cfg.n_experts))
 
 
 def make_batch(cfg, b=2, s=S, seed=0):
@@ -134,7 +158,7 @@ def reference_in_float64():
     modules' ``astype(jnp.float32)`` upcasts (norms, attention, RoPE
     angles) read as float64, so no step of it rounds to float32."""
     with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
-        for mod in (jlayers, jattention, jblocks, jlm):
+        for mod in (jlayers, jattention, jblocks, jlm, jmoe, jmamba2):
             mp.setattr(mod, "jnp", _Float64Numpy())
         yield
 
@@ -292,9 +316,9 @@ def test_loss_matches_reference(arch):
 def test_prefill_then_decode_matches_forward(arch):
     """The port's own prefill(S-1) + decode(1) == forward(S) at the last
     position (the reference's test_decode_matches_forward, its
-    tolerance)."""
+    tolerance, drop-free for an MoE as there)."""
     cfg = configs.get(arch, reduced=True)
-    rt = rt_pair()[1]
+    rt = drop_free(cfg, rt_pair()[1])
     params = module.init(lm.param_defs(cfg, rt), device="cpu", generator=0)
     batch = make_batch(cfg)
     full = lm.forward(params, batch, cfg, rt)[:, -1]
@@ -307,15 +331,15 @@ def test_prefill_then_decode_matches_forward(arch):
                                atol=2e-3)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
 def test_stack_input_drives_the_stack_layer_by_layer(arch):
     """stack_input, blocks.apply_block over each layer and head give
     forward's logits bit for bit; a decode step on the layer cache of
     the whole sequence (its last slot rewritten by the decode) gives
     decode_step's after prefill (chip_smoke.py's layer-by-layer route),
-    within F64_TOL in float64."""
+    within F64_TOL in float64 (drop-free for an MoE)."""
     cfg = configs.get(arch, reduced=True)
-    rt = rt_pair()[1]
+    rt = drop_free(cfg, rt_pair()[1])
     params = to64(module.init(lm.param_defs(cfg, rt), device="cpu",
                               generator=7))
     batch = batch64(make_batch(cfg))
@@ -340,6 +364,45 @@ def test_stack_input_drives_the_stack_layer_by_layer(arch):
                              S - 1 + extra, cfg, rt)
     assert_parity(lm.head(params, yd[:, 0], cfg), want, F64_TOL, "decode",
                   cfg.vocab)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_stack_input_drives_the_ssm_stacks_layer_by_layer(arch):
+    """The SSM and hybrid stacks one layer at a time (chip_smoke.py's
+    route): each mamba block's recurrent decode step of the last token,
+    after the chunked block over the others, against the chunked block
+    over all of them, and each shared attention site's decode step
+    against its full-sequence block, within F64_TOL in float64; the
+    layers and head give forward's logits bit for bit."""
+    cfg = configs.get(arch, reduced=True)
+    rt = rt_pair()[1]
+    params = to64(module.init(lm.param_defs(cfg, rt), device="cpu",
+                              generator=7))
+    batch = batch64(make_batch(cfg))
+    x, enc = lm.stack_input(params, batch, cfg, rt)
+    assert enc is None
+    x0 = x
+    pos = torch.arange(S)[None]
+    for i in range(cfg.n_layers):
+        if cfg.family == "hybrid" and i % cfg.attn_every == 0:
+            lora = lm.site_lora(params, i // cfg.attn_every)
+            dx, cache = lm._apply_shared(params["shared"], lora, x, x0,
+                                         cfg, rt, positions=pos)
+            dxd, _ = lm._apply_shared(params["shared"], lora, x[:, -1:],
+                                      x0[:, -1:], cfg, rt, positions=None,
+                                      cache=cache, pos=S - 1)
+            assert_parity(dxd[:, 0], dx[:, -1], F64_TOL, f"site {i}")
+            x = x + dx
+        lp = blocks.layer(params["blocks"], i)
+        y, _ = blocks.apply_mamba_block(lp, x, cfg, rt)
+        _, cache = blocks.apply_mamba_block(lp, x[:, :-1], cfg, rt)
+        yd, _ = blocks.apply_mamba_block_decode(lp, x[:, -1:], cache, cfg,
+                                                rt)
+        assert_parity(yd[:, 0], y[:, -1], F64_TOL, f"layer {i}")
+        x = y
+    np.testing.assert_array_equal(
+        lm.head(params, x, cfg).numpy(),
+        lm.forward(params, batch, cfg, rt).numpy())
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "internvl2-1b"])
@@ -376,17 +439,10 @@ def test_param_defs_match_reference_at_full_width(arch):
     assert module.count_params(defs) == jmodule.count_params(jdefs)
 
 
-@pytest.mark.parametrize("arch", DEFERRED)
-def test_deferred_families_raise_naming_next_slice(arch):
-    cfg = configs.get(arch, reduced=True)
-    rt = RunSpec()
-    for call in (lambda: lm.param_defs(cfg, rt),
-                 lambda: lm.forward({}, {}, cfg, rt),
-                 lambda: lm.prefill({}, {}, cfg, rt, 8),
-                 lambda: lm.decode_step({}, None, None, 0, cfg, rt),
-                 lambda: lm.cache_specs(cfg, rt, 1, 8)):
-        with pytest.raises(NotImplementedError, match="9b"):
-            call()
+def test_every_family_is_served():
+    assert set(lm.FAMILIES) == {"dense", "moe", "vlm", "hybrid", "ssm",
+                                "audio"}
+    assert ARCHS == configs.ARCHS
 
 
 def test_configs_copy_the_reference():
@@ -480,7 +536,8 @@ def test_language_model_module_mirrors_the_tree():
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "seamless-m4t-large-v2",
-                                  "internvl2-1b"])
+                                  "internvl2-1b", "qwen3-moe-30b-a3b",
+                                  "mamba2-2.7b", "zamba2-1.2b"])
 def test_cache_specs_match_prefill_caches(arch):
     cfg = configs.get(arch, reduced=True)
     rt = rt_pair()[1]
@@ -509,17 +566,6 @@ def test_default_device_is_the_card(monkeypatch):
         module.from_numpy({}, {})
 
 
-def test_mesh_decode_is_not_ported():
-    cfg = configs.get("qwen1.5-0.5b", reduced=True)
-    rt = rt_pair()[1]
-    params = module.init(lm.param_defs(cfg, rt), device="cpu")
-    batch = make_batch(cfg)
-    _, caches = lm.prefill(params, batch, cfg, rt, S + 2)
-    with pytest.raises(NotImplementedError, match="9b"):
-        lm.decode_step(params, batch["tokens"][:, -1:], caches, S, cfg, rt,
-                       mesh=object())
-
-
 # -- on the card -------------------------------------------------------------
 
 @pytest.mark.cuda
@@ -535,5 +581,5 @@ def test_card_matches_cpu(arch):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     torch.backends.cuda.matmul.allow_tf32 = False
-    for chunk, b, s in smoke.LM_CARD_CASES:
+    for chunk, b, s in smoke.lm_card_cases(configs.get(arch)):
         smoke.card_vs_cpu(np, torch, arch, chunk, b, s)
