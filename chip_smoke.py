@@ -54,11 +54,20 @@ record, minicpm3-4b (MLA) and internvl2-1b, then qwen3-moe-30b-a3b (12
 of its 48 layers), mamba2-2.7b and zamba2-1.2b, each checked layer by
 layer (decode against forward, scanned against one-shot attention);
 qwen1.5-0.5b's decode over a mesh of cuda:0 x 4 against its unsharded
-decode; then all ten reduced archs on the card against the CPU.
+decode; then all ten reduced archs on the card against the CPU.  Phase
+12 trains through ``repro_torch.train.step``: qwen1.5-0.5b at published
+width (8 steps of 4 x 512 tokens at f32; microbatches 2 against 1 in
+float64; a checkpoint saved and restored bitwise; a resumed run
+bitwise equal to an uninterrupted one under deterministic algorithms,
+in a subprocess, ``--train-resume``; one bf16 step), every reduced
+arch's train step on the card against the CPU, ``crosspod_reduce`` and
+the compressed step over two pods of cuda:0 against the CPU, and the
+audio-LM example (frames from K5) with a checkpoint resume.
 
 Launch counters, set to 0 before each path and read after it, show
 which kernels each path went through (the service drain's counts are
-``service_launches``, phase 11's ``lm_launches``).  Any failed check
+``service_launches``, phase 11's ``lm_launches``, phase 12's
+``train_launches``).  Any failed check
 raises, so the script exits non-zero and never prints the ``ok`` line.
 
 Output, in order: the card (``nvidia-smi`` name and power limit), the
@@ -77,6 +86,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1524,10 +1534,657 @@ def phase11(np, torch, sets, counters, smi):
     return seen
 
 
+# -- phase 12: training ------------------------------------------------------
+# 12a trains qwen1.5-0.5b at published width (24 layers, d 1024, vocab
+# 151 936, tied embeddings, 0.464 B params) through
+# train.step.make_train_step at f32 compute (launch/train.py's), TF32
+# off, remat per block, TRAIN_BATCH x TRAIN_SEQ tokens, TRAIN_STEPS steps
+# on one synth_batch; the step ms is the median after TRAIN_WARMUP steps.
+# Gates: finite losses and grad norms; microbatches=2 against 1 on the
+# same state and batch within the reference's own
+# test_microbatch_equals_full_batch_grads tolerances (TRAIN_MB_*); a
+# save -> restore bitwise; and, in a subprocess under deterministic
+# algorithms (``--train-resume``), TRAIN_RESUME_AT steps, a checkpoint,
+# a restore and the rest against TRAIN_RESUME_STEPS uninterrupted,
+# bitwise.  12b: one bf16-compute step (the reference's default) from
+# 12a's state against the f32 step, measured, not gated.  12c: every
+# reduced arch, one train step on the card against the CPU on the same
+# state and batch (an MoE drop-free): loss, grad_norm and master within
+# LM_CARD_F64_TOL in float64, float32 printed.  12d: crosspod_reduce and
+# the compressed step over cuda:0 x TRAIN_PODS pods against the CPU.
+# Then the audio-LM example (frames from K5) a few steps with a
+# checkpoint resume.
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_PROFILE_STEPS = 8, 2, 2
+TRAIN_MB_RTOL, TRAIN_MB_ATOL, TRAIN_MB_LOSS = 1e-4, 1e-6, 1e-4
+TRAIN_RESUME_AT, TRAIN_RESUME_STEPS = 3, 6
+TRAIN_PODS = 2
+AUDIO_EX_STEPS, AUDIO_EX_RESUME_AT = 6, 4
+
+
+def top_device_ops(on_dev, n=6):
+    """The ``n`` device operation names with the most device time in a
+    profiled window (``device_activity``'s events), as (name, share of
+    the window's device time, count)."""
+    tot, cnt = {}, {}
+    for a, b, name in on_dev:
+        tot[name] = tot.get(name, 0.0) + (b - a)
+        cnt[name] = cnt.get(name, 0) + 1
+    whole = sum(tot.values()) or 1.0
+    return [(k[:60], tot[k] / whole, cnt[k])
+            for k in sorted(tot, key=tot.get, reverse=True)[:n]]
+
+
+GEMM_KERNEL = re.compile(r"gemm|gemv|xmma", re.IGNORECASE)
+
+
+def profiled(torch, fn, state, batch, steps):
+    """(device ops a step, busy share, window ms, top ops, device ms a
+    step, GEMM device ms a step) of a ``torch.profiler`` window over
+    ``steps`` train steps from ``state``; the GEMMs are the device
+    operations whose names match GEMM_KERNEL (cuBLAS's xmma/sgemm/gemv
+    kernels and CUTLASS's sgemm)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st = state
+        for _ in range(steps):
+            st, _ = fn(st, batch)
+        torch.cuda.synchronize()
+    del st
+    on_dev, busy, span = device_activity(prof)
+    dev_us = sum(b - a for a, b, _ in on_dev)
+    gemm_us = sum(b - a for a, b, name in on_dev if GEMM_KERNEL.search(name))
+    return (len(on_dev) / steps, None if busy is None else busy / span,
+            None if span is None else span / 1e3, top_device_ops(on_dev),
+            dev_us / 1e3 / steps, gemm_us / 1e3 / steps)
+
+
+def train_setup(steps):
+    """(cfg, rt, opt, defs, f32 train step) of 12a: launch/train.py's
+    schedule for a run of ``steps`` at lr 3e-3."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.configs.base import RunSpec
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as trainstep
+
+    cfg = configs.get(TRAIN_ARCH)
+    rt = RunSpec(remat="block")
+    opt = adamw.AdamWConfig(lr_peak=3e-3, warmup_steps=max(steps // 10, 5),
+                            total_steps=steps)
+    defs = lm.param_defs(cfg, rt)
+    return cfg, rt, opt, defs, trainstep.make_train_step(
+        cfg, rt, opt, compute_dtype=torch.float32)
+
+
+def train_bound_ms(lm, module, cfg, rt, b, s):
+    """(bound ms, "operations" or "bytes", TFLOP, remat TFLOP) of one f32
+    train step: the block matmuls (2 flops a weight a token) and the
+    attention's (B, H, S, S) scores and values (4 B S^2 H hd a layer),
+    and the tied head (2 T d V), each forward and backward (twice the
+    forward); against the bytes of the update (master, m and v read and
+    written, the grads written and read: 32 bytes a param).  The remat
+    re-forward of the blocks is an implementation's choice, not the
+    function's work: it is returned apart and left out of the bound."""
+    defs = lm.param_defs(cfg, rt)
+    n = module.count_params(defs)
+    t = b * s
+    blocks = (2 * t * module.count_params(defs["blocks"])
+              + 4 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.hd)
+    head = 2 * t * cfg.d_model * cfg.padded_vocab
+    flops = 3 * (blocks + head)
+    ms, by = bound_ms(32.0 * n, flops)
+    return ms, by, flops / 1e12, blocks / 1e12
+
+
+def tree_rel(module, got, want):
+    """Largest deviation over a tree relative to ``want``'s largest
+    magnitude (float64 on the host)."""
+    w = [t.detach().double().cpu() for _, t in module.leaves_with_path(want)]
+    g = [t.detach().double().cpu() for _, t in module.leaves_with_path(got)]
+    return (max(float((a - b).abs().max()) for a, b in zip(g, w))
+            / max(float(b.abs().max()) for b in w))
+
+
+def mb_compare(torch, module, trainstep, cfg, rt, opt, state, batch, dtype,
+               one=None):
+    """microbatches=2 against 1 from ``state`` on ``batch`` at compute
+    and state ``dtype`` (``one``: the microbatches=1 step's result when
+    already run).  Returns the loss apart, the master's largest
+    deviation relative to its largest magnitude, and its excess over
+    the reference's rtol/atol (<= 0 passes)."""
+    import dataclasses
+
+    if dtype != torch.float32:
+        state = module.tree_map(lambda t: t.to(dtype)
+                                if t.is_floating_point() else t, state)
+    masters, losses = [], []
+    for mb in (1, 2):
+        if mb == 1 and one is not None:
+            new, m = one
+        else:
+            new, m = trainstep.make_train_step(
+                cfg, dataclasses.replace(rt, microbatches=mb), opt,
+                compute_dtype=dtype)(state, batch)
+        masters.append(new["opt"]["master"])
+        losses.append(float(m["loss"]))
+        del new
+    excess = max(float(((a - b).abs() - (TRAIN_MB_ATOL + TRAIN_MB_RTOL
+                                         * b.abs())).max())
+                 for (_, a), (_, b) in zip(
+                     module.leaves_with_path(masters[1]),
+                     module.leaves_with_path(masters[0])))
+    return {"loss_abs": abs(losses[1] - losses[0]),
+            "master_rel": tree_rel(module, masters[1], masters[0]),
+            "excess": excess}
+
+
+def train_full_width(np, torch, smi):
+    """12a and 12b; returns the numbers of the "train" JSON line."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import lm, module
+    from repro_torch.train import step as trainstep
+
+    cfg, rt, opt, defs, fn = train_setup(TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainstep.init_train_state(defs, opt, device="cuda",
+                                       generator=SEED)
+    batch = synth_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, "cuda")
+    losses, norms, secs = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"{TRAIN_ARCH} training: losses {losses}, grad norms {norms}")
+    step_s = statistics.median(secs[TRAIN_WARMUP:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    b_ms, b_by, tflop, remat_tflop = train_bound_ms(
+        lm, module, cfg, rt, TRAIN_BATCH, TRAIN_SEQ)
+
+    ops, busy, span, top, dev_ms, gemm_ms = profiled(
+        torch, fn, state, batch, TRAIN_PROFILE_STEPS)
+    # the matmul operations the step runs, the re-forward included, over
+    # the GEMM kernels' device time
+    gemm_rate = ((tflop + remat_tflop) / (gemm_ms / 1e3) if gemm_ms
+                 else None)
+
+    # microbatches=2 against 1, on the same state and batch: printed in
+    # float32; gated in float64, because at the reference's init the
+    # full-width model is chaotic in float32 (ROADMAP C8): cuBLAS rounds
+    # a 2-row batch otherwise than a 4-row one, and 24 layers grow that
+    # to O(1)
+    s1, m1 = fn(state, batch)
+    mb_f32 = mb_compare(torch, module, trainstep, cfg, rt, opt, state,
+                        batch, torch.float32, (s1, m1))
+    mb_f64 = mb_compare(torch, module, trainstep, cfg, rt, opt, state,
+                        batch, torch.float64)
+    excess, mb_loss = mb_f64["excess"], mb_f64["loss_abs"]
+    check(excess <= 0 and mb_loss <= TRAIN_MB_LOSS,
+          f"{TRAIN_ARCH} microbatches=2 against 1 in float64: master "
+          f"exceeds rtol {TRAIN_MB_RTOL}/atol {TRAIN_MB_ATOL} by "
+          f"{excess:.3e}, loss {mb_loss:.3e} apart (bound {TRAIN_MB_LOSS})")
+
+    # 12b: one step at bf16 compute from the same state
+    bf_fn = trainstep.make_train_step(cfg, rt, opt,
+                                      compute_dtype=torch.bfloat16)
+    bf_fn(state, batch)                              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s16, m16 = bf_fn(state, batch)
+    torch.cuda.synchronize()
+    bf_ms = (time.perf_counter() - t0) * 1e3
+    bf_ops, bf_busy, _, bf_top, _, _ = profiled(torch, bf_fn, state, batch,
+                                                TRAIN_PROFILE_STEPS)
+    upd32 = module.tree_map(lambda a, b: a - b, s1["opt"]["master"],
+                            state["opt"]["master"])
+    upd16 = module.tree_map(lambda a, b: a - b, s16["opt"]["master"],
+                            state["opt"]["master"])
+    bf_update = tree_rel(module, upd16, upd32)
+    bf_loss = abs(float(m16["loss"]) - float(m1["loss"])) / abs(
+        float(m1["loss"]))
+    del s16, upd16, upd32, s1
+
+    # save -> restore, bitwise
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        mgr = CheckpointManager(d, keep=1)
+        t0 = time.perf_counter()
+        mgr.save(TRAIN_STEPS, state)
+        t_host = time.perf_counter() - t0
+        mgr.wait()
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, step = mgr.restore(state)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        same = step == TRAIN_STEPS and all(
+            a.dtype == b.dtype and a.device == b.device
+            and torch.equal(a, b)
+            for (_, a), (_, b) in zip(module.leaves_with_path(state),
+                                      module.leaves_with_path(restored)))
+    check(same, f"{TRAIN_ARCH}: the restored train state differs from the "
+                f"saved one")
+    del restored, state
+    torch.cuda.empty_cache()
+
+    out = {"arch": TRAIN_ARCH, "params": module.count_params(defs),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "step_ms": step_s * 1e3, "step_ms_all": [s * 1e3 for s in secs],
+           "tokens_per_s": tokens / step_s, "peak_gib": peak,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "grad_norm_last": norms[-1], "tflop_per_step": tflop,
+           "remat_tflop_per_step": remat_tflop,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "device_ms_per_step": dev_ms, "gemm_ms_per_step": gemm_ms,
+           "gemm_tflops": gemm_rate,
+           "device_ops_per_step": ops, "busy_share": busy,
+           "profile_ms": span, "top_device_ops": top,
+           "bf16_device_ops_per_step": bf_ops, "bf16_busy_share": bf_busy,
+           "bf16_top_device_ops": bf_top,
+           "mb2_f64": mb_f64, "mb2_f32": mb_f32, "bf16_step_ms": bf_ms,
+           "bf16_loss_rel": bf_loss, "bf16_update_rel": bf_update,
+           "ckpt_host_s": t_host, "ckpt_save_s": t_save,
+           "ckpt_restore_s": t_restore}
+    gemm_s = ("GEMM time not measured" if gemm_rate is None else
+              f"device time a step {dev_ms:.2f} ms of which GEMMs "
+              f"{gemm_ms:.2f} ms ({gemm_ms / dev_ms * 100:.1f} %; "
+              f"{gemm_rate:.2f} TFLOP/s, {gemm_rate * 1e14 / PEAK_F32_FLOPS:.1f}"
+              f" % of the f32 peak)")
+    busy_s = ("not measured (the profiler saw no device activity)"
+              if busy is None else f"{busy * 100:.1f} % of {span:.1f} ms "
+              f"over {TRAIN_PROFILE_STEPS} steps")
+    print(f"train {TRAIN_ARCH} ({out['params'] / 1e9:.3f} B params), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, f32, remat block: step "
+          f"{step_s * 1e3:.2f} ms (median of {TRAIN_STEPS - TRAIN_WARMUP} "
+          f"after {TRAIN_WARMUP}; all {[round(s * 1e3, 2) for s in secs]}), "
+          f"{tokens / step_s:.1f} tokens/s, bound {b_ms:.2f} ms "
+          f"({b_by}; {tflop:.3f} TFLOP a step, {remat_tflop:.3f} more for "
+          f"the remat re-forward), peak {peak:.3f} GiB, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad_norm {norms[-1]:.4f}, "
+          f"device ops a step {ops:.0f}, busy {busy_s}, {gemm_s}, top "
+          f"device ops "
+          f"{[(n, round(f, 3), c) for n, f, c in top]}; microbatches 2 vs 1: float64 loss {mb_loss:.3e} apart, "
+          f"master {mb_f64['master_rel']:.3e} relative (excess over rtol/atol "
+          f"{excess:.3e}), float32 (not gated) loss {mb_f32['loss_abs']:.3e} "
+          f"apart, master {mb_f32['master_rel']:.3e}; bf16 step "
+          f"{bf_ms:.2f} ms ({bf_ops:.0f} device ops, top "
+          f"{[(n, round(f, 3), c) for n, f, c in bf_top]}), loss "
+          f"{bf_loss:.3e} and update {bf_update:.3e} relative from f32 (not "
+          f"gated); checkpoint save {t_save:.2f} s ({t_host:.2f} s to host), "
+          f"restore {t_restore:.2f} s, bitwise ({smi})")
+    return out
+
+
+def train_resume_main() -> int:
+    """``chip_smoke.py --train-resume``, run by phase 12a in a subprocess
+    with CUBLAS_WORKSPACE_CONFIG set before CUDA starts: under
+    deterministic algorithms, TRAIN_RESUME_AT steps, a checkpoint, a
+    restore and the rest of TRAIN_RESUME_STEPS equal the same steps run
+    uninterrupted, bit for bit (each step on its own synth_batch)."""
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import module
+    from repro_torch.train import step as trainstep
+
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, rt, opt, defs, fn = train_setup(TRAIN_RESUME_STEPS)
+
+    def fresh():
+        return trainstep.init_train_state(defs, opt, device="cuda",
+                                          generator=SEED)
+
+    def data(i):
+        return synth_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, i, "cuda")
+
+    t0 = time.perf_counter()
+    a = fresh()
+    for i in range(TRAIN_RESUME_STEPS):
+        a, _ = fn(a, data(i))
+    b = fresh()
+    for i in range(TRAIN_RESUME_AT):
+        b, _ = fn(b, data(i))
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        mgr = CheckpointManager(d, keep=1)
+        mgr.save(TRAIN_RESUME_AT, b)
+        mgr.wait()
+        b, step = mgr.restore(b)
+    check(step == TRAIN_RESUME_AT, f"restored step {step}")
+    for i in range(step, TRAIN_RESUME_STEPS):
+        b, _ = fn(b, data(i))
+    torch.cuda.synchronize()
+    diff = [(p, float((x.double() - y.double()).abs().max()))
+            for (p, x), (_, y) in zip(module.leaves_with_path(a),
+                                      module.leaves_with_path(b))
+            if not torch.equal(x, y)]
+    check(not diff, f"{TRAIN_ARCH}: resumed after step {TRAIN_RESUME_AT} "
+                    f"differs from {TRAIN_RESUME_STEPS} uninterrupted steps "
+                    f"under deterministic algorithms: {diff[:5]}")
+    print(f"train {TRAIN_ARCH} resume: {TRAIN_RESUME_AT} steps, checkpoint, "
+          f"restore, {TRAIN_RESUME_STEPS - TRAIN_RESUME_AT} more == "
+          f"{TRAIN_RESUME_STEPS} uninterrupted, bitwise, under "
+          f"deterministic algorithms ({time.perf_counter() - t0:.1f} s)")
+    return 0
+
+
+def train_card_vs_cpu(np, torch, arch):
+    """12c: one train step of a reduced arch on the card and on the CPU,
+    from the same state (seeded on the CPU) and batch, remat per block,
+    an MoE drop-free, lr above 0 from the first step.  Returns
+    {"float64"/"float32": (loss, grad_norm, master) relative errors};
+    raises past LM_CARD_F64_TOL in float64."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.configs.base import RunSpec
+    from repro_torch.models import lm, module
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as trainstep
+
+    cfg = configs.get(arch, reduced=True)
+    rt = RunSpec(remat="block")
+    if cfg.n_experts:
+        rt = dataclasses.replace(rt, capacity_factor=float(cfg.n_experts))
+    opt = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=0, total_steps=10)
+    defs = lm.param_defs(cfg, rt)
+    state = trainstep.init_train_state(defs, opt, device="cpu",
+                                       generator=SEED)
+    batch = lm_batch(cfg, 2, 16, SEED, np)
+    batch["labels"] = np.roll(batch["tokens"], -1, 1)
+    batch["mask"] = np.ones(batch["tokens"].shape, np.float32)
+    runs = {}
+    for dt in (torch.float64, torch.float32):
+        fn = trainstep.make_train_step(cfg, rt, opt, compute_dtype=dt)
+        bt = {k: v.astype(np.float64) if dt == torch.float64
+              and v.dtype == np.float32 else v for k, v in batch.items()}
+        for dev in ("cpu", "cuda"):
+            st = module.tree_map(
+                lambda t: t.to(dev, dt) if t.is_floating_point()
+                else t.to(dev), state)
+            new, m = fn(st, bt)
+            runs[dev, dt] = (m["loss"], m["grad_norm"], new["opt"]["master"])
+    out = {}
+    for dt, name in ((torch.float64, "float64"), (torch.float32, "float32")):
+        (lc, gc, mc), (lg, gg, mg) = runs["cpu", dt], runs["cuda", dt]
+        out[name] = (abs(float(lg) - float(lc)) / abs(float(lc)),
+                     abs(float(gg) - float(gc)) / abs(float(gc)),
+                     tree_rel(module, mg, mc))
+    check(max(out["float64"]) <= LM_CARD_F64_TOL,
+          f"{arch} reduced train step: card (loss, grad_norm, master) "
+          f"{out['float64']} relative from the CPU in float64 (bound "
+          f"{LM_CARD_F64_TOL:.0e})")
+    return out
+
+
+def train_crosspod(np, torch):
+    """12d: ``crosspod_reduce`` on seeded per-pod gradients of the reduced
+    qwen1.5-0.5b's shapes, over cuda:0 x TRAIN_PODS pods against ["cpu"]
+    * TRAIN_PODS: the means within one quantum (the leaf's shared scale
+    / (127 // n), over n), the carried errors within one quantum.  Then
+    one compressed train step of that model (``compressed_step``).
+    Returns the printed numbers."""
+    import repro_torch.configs as configs
+    from repro_torch.configs.base import RunSpec
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import lm, module
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import crosspod_reduce
+    from repro_torch.train import step as trainstep
+
+    n, lim = TRAIN_PODS, 127 // TRAIN_PODS
+    cfg = configs.get(TRAIN_ARCH, reduced=True)
+    rt = RunSpec(remat="block")
+    defs = lm.param_defs(cfg, rt)
+    rng = np.random.default_rng(SEED)
+    paths = [p for p, _ in module.leaves_with_path(defs)]
+    shapes = [d.shape for _, d in module.leaves_with_path(defs)]
+    g = [[(rng.standard_normal(s) * 10.0 ** (j % 4 - 2)).astype(np.float32)
+          for j, s in enumerate(shapes)] for _ in range(n)]
+    e = [[(rng.standard_normal(s) * 1e-4).astype(np.float32)
+          for s in shapes] for _ in range(n)]
+    res = {}
+    for kind, devs in (("cuda", ["cuda:0"] * n), ("cpu", ["cpu"] * n)):
+        trees = [module.unflatten(defs, [torch.as_tensor(a, device=d)
+                                         for a in g[i]])
+                 for i, d in enumerate(devs)]
+        errs = [module.unflatten(defs, [torch.as_tensor(a, device=d)
+                                        for a in e[i]])
+                for i, d in enumerate(devs)]
+        means, new_err = crosspod_reduce(trees, errs, devs)
+        res[kind] = ([[t.cpu().numpy() for _, t in
+                       module.leaves_with_path(x)] for x in means],
+                     [[t.cpu().numpy() for _, t in
+                       module.leaves_with_path(x)] for x in new_err])
+    worst_mean = worst_err = 0.0
+    flips = 0
+    for j, path in enumerate(paths):
+        quantum = max(float(np.abs(g[i][j] + e[i][j]).max())
+                      for i in range(n)) / lim
+        for i in range(n):
+            dm = float(np.abs(res["cuda"][0][i][j]
+                              - res["cpu"][0][i][j]).max())
+            de = np.abs(res["cuda"][1][i][j] - res["cpu"][1][i][j])
+            worst_mean = max(worst_mean, dm / (quantum / n))
+            worst_err = max(worst_err, float(de.max()) / quantum)
+            flips += int((de > quantum / 2).sum())
+    check(worst_mean <= 1 + 1e-6 and worst_err <= 1 + 1e-6,
+          f"crosspod_reduce card vs CPU: means {worst_mean:.3f} quanta/n, "
+          f"errors {worst_err:.3f} quanta apart (bound 1)")
+
+    step = compressed_step(np, torch, cfg, rt, defs)
+    print(f"train crosspod_reduce over cuda:0 x {n} pods vs CPU (reduced "
+          f"{TRAIN_ARCH} shapes, {sum(int(np.prod(s)) for s in shapes)} "
+          f"entries a pod): means within {worst_mean:.3f} of a quantum/n, "
+          f"errors within {worst_err:.3f} of a quantum, {flips} int8 payload "
+          f"entries differ; compressed step: float64 (loss, grad_norm, "
+          f"master, m, v, err) "
+          + " / ".join(f"{x:.2e}" for x in step["f64"])
+          + f" relative from the CPU; float32 loss {step['f32_loss']:.3e} "
+          f"relative, m within {step['f32_m_quanta']:.3f} and errors within "
+          f"{step['f32_err_quanta']:.3f} of a quantum, "
+          f"{step['f32_err_flips']} carried-error entries a quantum/2 or "
+          f"more apart")
+    return {"mean_quanta": worst_mean, "err_quanta": worst_err,
+            "payload_flips": flips, "step": step}
+
+
+def compressed_step(np, torch, cfg, rt, defs):
+    """12d: one compressed train step over cuda:0 x TRAIN_PODS pods
+    against ["cpu"] * TRAIN_PODS from the same state (seeded carried
+    errors that differ by pod) and batch.  Float64: loss, grad_norm,
+    master, m, v and the carried errors within LM_CARD_F64_TOL (each tree
+    against its largest magnitude).  Float32: m, which is (1 - b1) times
+    the clipped mean gradient at zero moments, within (1 - b1) clip of
+    one quantum of each entry, the carried errors within one quantum (a
+    payload may round the other way), the loss within LM_CARD_F32_CAP;
+    each leaf's quantum from float64 per-pod grads on the CPU."""
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import module
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as trainstep
+
+    n, lim, rows = TRAIN_PODS, 127 // TRAIN_PODS, 2     # rows a pod
+    opt = adamw.AdamWConfig(lr_peak=1e-3, warmup_steps=0, total_steps=10)
+    batch = lm_batch(cfg, rows * n, 16, SEED + 3, np)
+    batch["labels"] = np.roll(batch["tokens"], -1, 1)
+    batch["mask"] = np.ones(batch["tokens"].shape, np.float32)
+    state = trainstep.init_train_state(defs, opt, device="cpu",
+                                       generator=SEED, n_pods=n)
+    rng = np.random.default_rng(SEED + 4)
+    state["err"] = module.tree_map(lambda t: torch.as_tensor(
+        rng.standard_normal(tuple(t.shape)) * 1e-5, dtype=t.dtype),
+        state["err"])
+
+    def cast(tree, dt, dev):
+        return module.tree_map(lambda t: t.to(dev, dt)
+                               if t.is_floating_point() else t.to(dev), tree)
+
+    def leaves(tree):
+        return [t for _, t in module.leaves_with_path(tree)]
+
+    s64 = cast(state, torch.float64, "cpu")
+    b64 = {k: v.astype(np.float64) if v.dtype == np.float32 else v
+           for k, v in batch.items()}
+    params = trainstep.compute_params(s64["opt"]["master"], torch.float64)
+    scale = None
+    for i in range(n):
+        _, g = trainstep.value_and_grad(
+            params, {k: v[i * rows:(i + 1) * rows] for k, v in b64.items()},
+            cfg, rt)
+        top = [float((gi + e[i]).abs().max())
+               for gi, e in zip(g, leaves(s64["err"]))]
+        scale = top if scale is None else [max(x, y)
+                                           for x, y in zip(scale, top)]
+    quanta = [x / lim for x in scale]
+
+    runs = {}
+    for dt in (torch.float64, torch.float32):
+        bt = b64 if dt == torch.float64 else batch
+        for kind, devs in (("cuda", ["cuda:0"] * n), ("cpu", ["cpu"] * n)):
+            fn = trainstep.make_train_step(
+                cfg, rt, opt, compute_dtype=dt, compress_pod_axis="pod",
+                mesh=device_mesh(devs, pod=n))
+            runs[kind, dt] = fn(cast(state, dt, devs[0]), bt)
+    def rel(got, want, k):
+        return abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+
+    (sc, mc), (sg, mg) = runs["cpu", torch.float64], runs["cuda",
+                                                         torch.float64]
+    f64 = [rel(mg, mc, "loss"), rel(mg, mc, "grad_norm")] + [
+        tree_rel(module, sg["opt"][k], sc["opt"][k])
+        for k in ("master", "m", "v")] + [tree_rel(module, sg["err"],
+                                                   sc["err"])]
+    check(int(sg["step"]) == 1 and max(f64) <= LM_CARD_F64_TOL,
+          f"compressed step card vs CPU in float64: (loss, grad_norm, "
+          f"master, m, v, err) {f64} relative (bound {LM_CARD_F64_TOL:.0e})")
+
+    (sc, mc), (sg, mg) = runs["cpu", torch.float32], runs["cuda",
+                                                         torch.float32]
+    clip = min(1.0, opt.clip_norm / float(mc["grad_norm"]))
+    m_q = max(float((a.cpu() - b).abs().max()) / ((1 - opt.b1) * clip * q)
+              for a, b, q in zip(leaves(sg["opt"]["m"]),
+                                 leaves(sc["opt"]["m"]), quanta))
+    err_d = [(a.cpu() - b).abs() for a, b in zip(leaves(sg["err"]),
+                                                 leaves(sc["err"]))]
+    err_q = max(float(d.max()) / q for d, q in zip(err_d, quanta))
+    err_flips = sum(int((d >= q / 2).sum()) for d, q in zip(err_d, quanta))
+    loss32 = rel(mg, mc, "loss")
+    check(m_q <= 1 + 1e-3 and err_q <= 1 + 1e-3
+          and loss32 <= LM_CARD_F32_CAP,
+          f"compressed step card vs CPU in float32: m {m_q:.3f} of (1 - b1) "
+          f"clip quanta, errors {err_q:.3f} quanta apart (bound 1), loss "
+          f"{loss32:.3e} relative (bound {LM_CARD_F32_CAP:.0e})")
+    return {"f64": f64, "f32_loss": loss32, "f32_m_quanta": m_q,
+            "f32_err_quanta": err_q, "f32_err_flips": err_flips}
+
+
+def train_audio_example(torch):
+    """The audio-LM example on the card: AUDIO_EX_STEPS steps with a
+    checkpoint every 2 (its frames from K5), then the run again from the
+    checkpoint of step AUDIO_EX_RESUME_AT (the later one removed, as a
+    crash leaves it).  The resumed losses are printed against the
+    uninterrupted run's, not gated: outside deterministic algorithms a
+    backward's atomics may round differently."""
+    import importlib.util
+    import shutil
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_audio_lm", ROOT / "examples" / "torch_train_audio_lm.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    kw = dict(steps=AUDIO_EX_STEPS, batch=4, frames=64, device="cuda",
+              ckpt_every=2, log_every=AUDIO_EX_STEPS)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        full = ex.run(ckpt_dir=d, **kw)
+        dt = time.perf_counter() - t0
+        shutil.rmtree(Path(d, f"step_{AUDIO_EX_STEPS:08d}"))
+        Path(d, "LATEST").write_text(f"step_{AUDIO_EX_RESUME_AT:08d}")
+        resumed = ex.run(ckpt_dir=d, **kw)
+    check(len(full) == AUDIO_EX_STEPS
+          and len(resumed) == AUDIO_EX_STEPS - AUDIO_EX_RESUME_AT
+          and all(math.isfinite(x) for x in full + resumed),
+          f"audio-LM example: losses {full}, resumed {resumed}")
+    dev = max(abs(a - b) / abs(b)
+              for a, b in zip(resumed, full[AUDIO_EX_RESUME_AT:]))
+    print(f"train audio-LM example on the card: {AUDIO_EX_STEPS} steps in "
+          f"{dt:.2f} s, loss {full[0]:.4f} -> {full[-1]:.4f}; resumed at "
+          f"step {AUDIO_EX_RESUME_AT}: losses {dev:.3e} relative from the "
+          f"uninterrupted run's")
+
+
+def phase12(np, torch, counters, smi):
+    """Phase 12: training (12a-12d and the audio-LM example).  Returns
+    the launches per kernel, counted from the start of the phase to its
+    end."""
+    import repro_torch.configs as configs
+
+    for c in counters.values():
+        c.reset()
+    t_sub = [time.perf_counter()]
+
+    def sub_done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_sub[0]:.1f} s")
+        t_sub[0] = now
+
+    train = train_full_width(np, torch, smi)
+    sub_done("12a-12b")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--train-resume"], env=env, capture_output=True,
+                          text=True, timeout=600)
+    print(proc.stdout.strip())
+    check(proc.returncode == 0, f"the resume check failed: "
+                                f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    sub_done("12a resume")
+
+    for arch in configs.ARCHS:
+        errs = train_card_vs_cpu(np, torch, arch)
+        print(f"train {arch} reduced, one step: card vs CPU (loss, "
+              f"grad_norm, master) float64 "
+              + " / ".join(f"{x:.2e}" for x in errs["float64"])
+              + "; float32 " + " / ".join(f"{x:.2e}" for x in errs["float32"]))
+    sub_done("12c")
+    train["crosspod"] = train_crosspod(np, torch)
+    sub_done("12d")
+    train_audio_example(torch)
+    sub_done("12 audio example")
+    print(json.dumps({"train": train}))
+
+    seen = {c: counters[c].count for c in counters}
+    print(f"phase 12 launches: {seen}")
+    check(seen["frame_psd"] >= 1 and all(
+        n == 0 for c, n in seen.items() if c != "frame_psd"),
+          f"phase 12 launched {seen}")
+    return seen
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit("chip_smoke.py runs from a checkout of the "
                          "repository: src/repro_torch is missing")
+    if sys.argv[1:] == ["--train-resume"]:
+        return train_resume_main()
     sys.path.insert(0, str(SRC))
     import numpy as np
     import torch
@@ -2615,6 +3272,10 @@ def main() -> int:
     lm_launches = phase11(np, torch, sets, counters, smi)
     phase_done("11")
 
+    # -- phase 12: training ----------------------------------------------------
+    train_launches = phase12(np, torch, counters, smi)
+    phase_done("12")
+
     p, m = sets["set1"][:2]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2635,6 +3296,7 @@ def main() -> int:
         r["sharded_launches"] = sharded_launches[r["name"]]
         r["service_launches"] = service_launches[r["name"]]
         r["lm_launches"] = lm_launches[r["name"]]
+        r["train_launches"] = train_launches[r["name"]]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""The readings behind tests/test_torch_models.py's parity bounds.
+"""The readings behind tests/torch_lm_cases.py's parity bounds.
 
 For each arch at its reduced config and each attention branch
 (one-shot: 2 x 16 tokens, attn_chunk 64; scanned: 2100 tokens,
@@ -28,7 +28,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tests"))
 
-import test_torch_models as T  # noqa: E402
+import torch_lm_cases as T  # noqa: E402
 
 
 def worst(a, b, v):

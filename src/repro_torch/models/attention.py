@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunSpec
-from .layers import apply_rope, rope_angles, upcast
+from repro_torch.distributed.lockstep import run_lockstep
+from .layers import apply_rope, einsum, mm, rope_angles, upcast
 from .module import ParamDef, tree_map
 
 NEG_INF = -1e30
@@ -101,12 +102,12 @@ def _rms(x, scale, eps=1e-5):
 
 def _proj(x, w):
     """einsum('...d,dhe->...he') as one matmul."""
-    return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+    return mm(x, w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
 def _out(o, wo):
     """einsum('...he,hed->...d') as one matmul."""
-    return o.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+    return mm(o.flatten(-2), wo.reshape(-1, wo.shape[-1]))
 
 
 # ----------------------------------------------- chunked online-softmax
@@ -121,12 +122,12 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0,
     qpos = torch.arange(s, device=dev)[:, None] + q_offset
 
     if t <= max(chunk, 2048):  # small kv: one shot
-        sc = torch.einsum("bshd,bthd->bhst", qf, upcast(k))
+        sc = einsum("bshd,bthd->bhst", qf, upcast(k))
         if causal:
             sc = torch.where(qpos >= torch.arange(t, device=dev)[None, :],
                              sc, NEG_INF)
         p = torch.softmax(sc, dim=-1)
-        return torch.einsum("bhst,bthd->bshd", p, upcast(v)).to(q.dtype)
+        return einsum("bhst,bthd->bshd", p, upcast(v)).to(q.dtype)
 
     n = -(-t // chunk)
     pad = n * chunk - t
@@ -139,7 +140,7 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0,
         kc = kp[:, ci * chunk:(ci + 1) * chunk]
         vc = vp[:, ci * chunk:(ci + 1) * chunk]
         kpos = ci * chunk + torch.arange(chunk, device=dev)
-        sc = torch.einsum("bshd,bthd->bhst", qf, upcast(kc))
+        sc = einsum("bshd,bthd->bhst", qf, upcast(kc))
         valid = kpos[None, :] < t
         if causal:
             valid = valid & (qpos >= kpos[None, :])
@@ -148,8 +149,8 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0,
         p = torch.exp(sc - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + torch.sum(p, dim=-1)
-        o = o * alpha[..., None] + torch.einsum("bhst,bthd->bhsd", p,
-                                                upcast(vc))
+        o = o * alpha[..., None] + einsum("bhst,bthd->bhsd", p,
+                                          upcast(vc))
         m = m_new
     out = o / torch.clamp(l, min=1e-30)[..., None]
     return out.transpose(1, 2).to(q.dtype)      # (B,S,H,D)
@@ -256,33 +257,14 @@ class DecodeShards:
         return out
 
     def run(self, bodies: list) -> list:
-        """Drive one shard body per position in lock step.  A body
-        yields ``("max" | "sum", value)`` at each collective; the values
-        of its group are combined in sequence order on the first device
-        and sent back to each member on its own device.  Returns the
-        bodies' return values."""
-        vals = [next(b) for b in bodies]
-        while True:
-            sent = [None] * len(bodies)
-            for members in self.groups:
-                op = torch.maximum if vals[members[0]][0] == "max" \
-                    else torch.add
-                red = None
-                for i in members:
-                    v = tree_map(lambda t: t.to(self.device), vals[i][1])
-                    red = v if red is None else tree_map(op, red, v)
-                for i in members:
-                    dev = self.shards[i][0]
-                    sent[i] = tree_map(lambda t: t.to(dev), red)
-            done, nxt = [], []
-            for b, v in zip(bodies, sent):
-                try:
-                    nxt.append(b.send(v))
-                except StopIteration as e:   # every body ends together
-                    done.append(e.value)
-            if done:
-                return done
-            vals = nxt
+        """Drive one shard body per position in lock step
+        (``distributed.lockstep.run_lockstep``): a body yields ``("max"
+        | "sum", value)`` at each collective; the values of its group
+        are combined in sequence order on the first device and sent back
+        to each member on its own device.  Returns the bodies' return
+        values."""
+        return run_lockstep(bodies, [s[0] for s in self.shards],
+                            self.groups, self.device)
 
     def outputs(self, results: list, device) -> torch.Tensor:
         """Each data group's output (the same on all its members),
@@ -342,13 +324,13 @@ def _flash_body(q, k, v, new_k, new_v, pos, shard_idx, s_loc, *, kmap,
 
     kq = k if kmap is None else torch.index_select(k, 1, kmap)
     vq = v if kmap is None else torch.index_select(v, 1, kmap)
-    sc = torch.einsum("bhd,bhsd->bhs", upcast(q) * scale, upcast(kq))
+    sc = einsum("bhd,bhsd->bhs", upcast(q) * scale, upcast(kq))
     spos = shard_idx * s_loc + torch.arange(s_loc, device=q.device)
     sc = torch.where(spos[None, None, :] <= pos, sc, NEG_INF)
     m = yield "max", torch.amax(sc, dim=-1)
     pexp = torch.exp(sc - m[..., None])
     l, o = yield "sum", (torch.sum(pexp, dim=-1),
-                         torch.einsum("bhs,bhsd->bhd", pexp, upcast(vq)))
+                         einsum("bhs,bhsd->bhd", pexp, upcast(vq)))
     out = (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     return out, k, v
 
@@ -422,7 +404,7 @@ def decode_attn(p, x, cache, pos, cfg: ModelConfig, rt: RunSpec, *,
 # ------------------------------------------------------------------ MLA
 def _mla_q(p, x, cfg: ModelConfig, positions):
     """Latent-projected queries -> (q_nope, q_rope), (B,S,Hp,.)."""
-    cq = _rms(x @ p["wq_a"], p["q_norm"])
+    cq = _rms(mm(x, p["wq_a"]), p["q_norm"])
     q = _proj(cq, p["wq_b"])
     q_nope = q[..., : cfg.qk_nope_dim]
     q_rope = q[..., cfg.qk_nope_dim:]
@@ -433,7 +415,7 @@ def _mla_q(p, x, cfg: ModelConfig, positions):
 
 def _mla_kv_latent(p, x, cfg: ModelConfig, positions):
     """Compressed kv: (c_kv (B,S,kvr) normed, k_rope (B,S,rope) roped)."""
-    kv_a = x @ p["wkv_a"]
+    kv_a = mm(x, p["wkv_a"])
     c_kv = _rms(kv_a[..., : cfg.kv_lora_rank], p["kv_norm"])
     k_rope = kv_a[..., cfg.kv_lora_rank:]
     cos, sin = rope_angles(positions, cfg.qk_rope_dim, cfg.rope_theta,
@@ -468,15 +450,15 @@ def apply_mla(p, x, cfg: ModelConfig, rt: RunSpec, *, positions):
 def _mla_body(q, ck, new_ck, pos, shard_idx, s_loc, *, kvr, scale):
     pos = int(pos)
     _write_slot(ck, new_ck, pos, s_loc, shard_idx)
-    sc = torch.einsum("bhe,bse->bhs", upcast(q) * scale,
-                      upcast(ck[:, 0]))
+    sc = einsum("bhe,bse->bhs", upcast(q) * scale,
+                upcast(ck[:, 0]))
     spos = shard_idx * s_loc + torch.arange(s_loc, device=q.device)
     sc = torch.where(spos[None, None, :] <= pos, sc, NEG_INF)
     m = yield "max", torch.amax(sc, dim=-1)
     pexp = torch.exp(sc - m[..., None])
     l, o = yield "sum", (torch.sum(pexp, dim=-1),
-                         torch.einsum("bhs,bsr->bhr", pexp,
-                                      upcast(ck[:, 0, :, :kvr])))
+                         einsum("bhs,bsr->bhr", pexp,
+                                upcast(ck[:, 0, :, :kvr])))
     out = (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
     return out, ck
 
@@ -505,7 +487,7 @@ def mla_decode(p, x, cache, pos, cfg: ModelConfig, rt: RunSpec, *,
 
     # absorb W_UK:  q_lat[b,h,r] = sum_n q_nope[b,h,n] * wkv_b[r,h,n]
     w_uk = p["wkv_b"][..., :nope][:, :h]                     # (kvr,H,nope)
-    q_lat = torch.einsum("bhn,rhn->bhr", q_nope, w_uk)
+    q_lat = einsum("bhn,rhn->bhr", q_nope, w_uk)
     q = torch.cat([q_lat, q_rope], dim=-1)                   # (B,H,kvr+rope)
     scale = 1.0 / math.sqrt(nope + cfg.qk_rope_dim)
     if mesh is None or seq_axis is None:
@@ -523,6 +505,6 @@ def mla_decode(p, x, cache, pos, cfg: ModelConfig, rt: RunSpec, *,
 
     # absorb W_UV: out[b,h,e] = sum_r out_lat[b,h,r] * wkv_b[r,h,nope+e]
     w_uv = p["wkv_b"][..., nope:][:, :h]                     # (kvr,H,vd)
-    o = torch.einsum("bhr,rhe->bhe", out, w_uv)
+    o = einsum("bhr,rhe->bhe", out, w_uv)
     o = _out(o, p["wo"][:h])[:, None]
     return o, ck

@@ -1,17 +1,25 @@
 """Transformer / Mamba blocks and layer stacks.
 
 A stack's parameters carry a leading layer axis (``module.stack``); the
-reference scans over it with ``lax.scan``, the port loops over the layer
-index.  ``RunSpec.remat`` (checkpoint each scanned block) is a training
-knob and is ignored on this serving path.
+reference scans over it with ``lax.scan``, the port loops over the
+layers of one ``torch.unbind`` of each leaf (``layers``).
+
+``RunSpec.remat == "block"`` checkpoints each block of an attention
+stack (``apply_stack``, the reference's one ``jax.checkpoint`` site):
+with grad enabled, each block runs under
+``torch.utils.checkpoint.checkpoint`` and its activations are recomputed
+in the backward.  Under ``torch.no_grad()`` (serving) nothing is
+checkpointed and the outputs are the same bits.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunSpec
 from . import attention, mamba2, moe
-from .layers import apply_mlp, apply_norm, mlp_defs, norm_defs, upcast
+from .layers import (apply_mlp, apply_norm, einsum, mlp_defs, norm_defs,
+                     upcast)
 from .module import stack, tree_map
 
 
@@ -82,10 +90,10 @@ def apply_block_decode(p, x, cache, pos, cfg: ModelConfig, rt: RunSpec, *,
         ke = attention._expand_kv(k, cfg, RunSpec(tp=1), 1)
         ve = attention._expand_kv(v, cfg, RunSpec(tp=1), 1)
         q = attention._proj(h, p["xattn"]["wq"])[:, :, : cfg.n_heads]
-        sc = torch.einsum("bshe,bhte->bhst", q * (cfg.hd ** -0.5),
-                          ke.to(q.dtype))
+        sc = einsum("bshe,bhte->bhst", q * (cfg.hd ** -0.5),
+                    ke.to(q.dtype))
         pr = torch.softmax(upcast(sc), dim=-1).to(q.dtype)
-        o = torch.einsum("bhst,bhte->bshe", pr, ve.to(q.dtype))
+        o = einsum("bhst,bhte->bshe", pr, ve.to(q.dtype))
         a = attention._out(o, p["xattn"]["wo"][: cfg.n_heads])
         x = x + a * rs
         cache = (cache, xcache)
@@ -122,16 +130,35 @@ def layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def layers(tree) -> list:
+    """Every layer of a stacked tree, from one ``torch.unbind`` of each
+    leaf: views, and in a backward one stacked grad per leaf (``layer``
+    for each i would build a zero-filled grad the size of the whole
+    stack for every layer)."""
+    if isinstance(tree, dict):
+        cols = {k: layers(v) for k, v in tree.items()}
+        n = len(next(iter(cols.values())))
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    if isinstance(tree, (tuple, list)):
+        return [type(tree)(row) for row in zip(*map(layers, tree))]
+    return list(torch.unbind(tree))
+
+
 def apply_stack(params, x, cfg: ModelConfig, rt: RunSpec, *, positions,
                 causal=True, enc_out=None, collect_cache=False):
     """Loop over a stacked block tree; optionally stack per-layer caches
-    along a new leading layer axis."""
-    n = next(iter(params["norm1"].values())).shape[0]
+    along a new leading layer axis.  With grad enabled and
+    ``rt.remat == "block"``, each block is checkpointed."""
+    remat = rt.remat == "block" and torch.is_grad_enabled()
     caches = []
-    for i in range(n):
-        x, cache = apply_block(layer(params, i), x, cfg, rt,
-                               positions=positions, causal=causal,
-                               enc_out=enc_out)
+    for lp in layers(params):
+        if remat:
+            x, cache = checkpoint(apply_block, lp, x, cfg, rt,
+                                  positions=positions, causal=causal,
+                                  enc_out=enc_out, use_reentrant=False)
+        else:
+            x, cache = apply_block(lp, x, cfg, rt, positions=positions,
+                                   causal=causal, enc_out=enc_out)
         if collect_cache:
             caches.append(cache)
     if not collect_cache:

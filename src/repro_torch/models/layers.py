@@ -20,6 +20,31 @@ def upcast(x):
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def _promoted(*ops):
+    dt = ops[0].dtype
+    for o in ops[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return [o.to(dt) for o in ops]
+
+
+def mm(a, b):
+    """``a @ b`` at the two operands' promoted dtype, as ``jnp`` computes
+    a mixed product (a float32 activation against bf16 weights runs in
+    float32); operands of one dtype pass through unchanged."""
+    a, b = _promoted(a, b)
+    return a @ b
+
+
+def einsum(eq: str, *ops):
+    """``torch.einsum`` at the operands' promoted dtype (see ``mm``)."""
+    return torch.einsum(eq, *_promoted(*ops))
+
+
+def bmm(a, b):
+    """``torch.bmm`` at the operands' promoted dtype (see ``mm``)."""
+    return torch.bmm(*_promoted(a, b))
+
+
 # ----------------------------------------------------------------- norms
 def norm_defs(d: int) -> dict:
     return {"scale": ParamDef((d,), (), init="ones"),
@@ -61,13 +86,13 @@ def mlp_defs(d: int, ff: int, kind: str, bias: bool = False) -> dict:
 
 def apply_mlp(p, x, kind: str):
     if kind == "swiglu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wi"])
+        h = F.silu(mm(x, p["wg"])) * mm(x, p["wi"])
     else:
-        h = x @ p["wi"]
+        h = mm(x, p["wi"])
         if "bi" in p:
             h = h + p["bi"]
         h = gelu(h)
-    out = h @ p["wo"]
+    out = mm(h, p["wo"])
     if "bo" in p:
         out = out + p["bo"]
     return out
@@ -109,4 +134,4 @@ def lm_head_defs(vocab: int, d: int) -> dict:
 
 
 def apply_lm_head(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"]
+    return mm(x, p["w"])

@@ -34,8 +34,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, RunSpec
 from . import attention, blocks, module, moe
 from .layers import (apply_embed, apply_lm_head, apply_mlp, apply_norm,
-                     embed_defs, gelu, lm_head_defs, mlp_defs, norm_defs,
-                     upcast)
+                     einsum, embed_defs, gelu, lm_head_defs, mlp_defs, mm,
+                     norm_defs, upcast)
 from .module import ParamDef, stack, tree_map
 
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")
@@ -118,7 +118,7 @@ def _apply_shared(shared, lora, x, x0, cfg: ModelConfig, rt: RunSpec, *,
     h = torch.cat([x, x0], dim=-1)
     if lora is not None:
         la, lb = lora
-        h = h + (h @ la) @ lb
+        h = h + mm(mm(h, la), lb)
     h = apply_norm(shared["norm"], h, cfg.norm)
     if cache is None:
         a, cache = attention.apply_attn(shared["attn"], h, scfg, rt,
@@ -130,7 +130,7 @@ def _apply_shared(shared, lora, x, x0, cfg: ModelConfig, rt: RunSpec, *,
     h = h + a
     m = apply_mlp(shared["mlp"], apply_norm(shared["norm2"], h, cfg.norm),
                   cfg.mlp)
-    return (h + m) @ shared["proj"], cache
+    return mm(h + m, shared["proj"]), cache
 
 
 def site_lora(params, site: int):
@@ -155,6 +155,7 @@ def _hybrid_stack(params, x, cfg: ModelConfig, rt: RunSpec, *, positions,
     x0 = x
     k_every = cfg.attn_every
     collected = []
+    mamba_layers = None if decode else blocks.layers(params["blocks"])
     for i in range(cfg.n_layers):
         if i % k_every == 0:
             site = i // k_every
@@ -172,13 +173,13 @@ def _hybrid_stack(params, x, cfg: ModelConfig, rt: RunSpec, *, positions,
                     for full, c in zip(attn_caches, cache):
                         full[site, :, :, : c.shape[-2]] = c
             x = x + dx
-        lp = blocks.layer(params["blocks"], i)
         if decode:
+            lp = blocks.layer(params["blocks"], i)
             x, new = blocks.apply_mamba_block_decode(
                 lp, x, blocks.layer(mamba_caches, i), cfg, rt)
             _put(mamba_caches, i, new)
         else:
-            x, new = blocks.apply_mamba_block(lp, x, cfg, rt)
+            x, new = blocks.apply_mamba_block(mamba_layers[i], x, cfg, rt)
             collected.append(new)
     if not decode:
         mamba_caches = tree_map(lambda *c: torch.stack(c), *collected)
@@ -204,20 +205,20 @@ def _input(batch, key, params):
 def _embed_in(params, batch, cfg: ModelConfig, rt: RunSpec):
     """Token/patch/frame embedding -> x (B, S, d)."""
     if cfg.family == "audio":
-        x = _input(batch, "frames", params) @ params["frontend"]["w"]
+        x = mm(_input(batch, "frames", params), params["frontend"]["w"])
         return apply_norm(params["frontend"]["norm"], x, cfg.norm)
     tokens = _input(batch, "tokens", params)
     table = params["embed"]["table"]
     if rt.embed_via_matmul:
         onehot = F.one_hot(tokens.long(), cfg.padded_vocab).to(table.dtype)
-        x = torch.einsum("bsv,vd->bsd", onehot, table) * cfg.scale_emb
+        x = einsum("bsv,vd->bsd", onehot, table) * cfg.scale_emb
     else:
         x = apply_embed(params["embed"], tokens) * cfg.scale_emb
     if cfg.family == "vlm":
         pj = params["projector"]
         v = apply_norm(pj["norm"], _input(batch, "patches", params),
                        "layernorm")
-        v = gelu(v @ pj["w1"]) @ pj["w2"]
+        v = mm(gelu(mm(v, pj["w1"])), pj["w2"])
         x = torch.cat([v.to(x.dtype), x], dim=1)
     return x
 
@@ -226,7 +227,7 @@ def head(params, x, cfg: ModelConfig):
     """Final norm and (tied) LM head: (..., d) -> (..., padded_vocab)."""
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["table"].T
+        logits = mm(x, params["embed"]["table"].T)
     else:
         logits = apply_lm_head(params["head"], x)
     if cfg.padded_vocab != cfg.vocab:
@@ -266,9 +267,8 @@ def _ssm_stack(params, x, cfg: ModelConfig, rt: RunSpec):
     """The mamba layers in order; returns (x, caches stacked over the
     layers)."""
     caches = []
-    for i in range(cfg.n_layers):
-        x, cache = blocks.apply_mamba_block(blocks.layer(params["blocks"], i),
-                                            x, cfg, rt)
+    for lp in blocks.layers(params["blocks"]):
+        x, cache = blocks.apply_mamba_block(lp, x, cfg, rt)
         caches.append(cache)
     return x, tree_map(lambda *c: torch.stack(c), *caches)
 

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunSpec
 from .attention import _proj
-from .layers import upcast
+from .layers import einsum, mm, upcast
 from .module import ParamDef
 
 
@@ -77,9 +77,9 @@ def _inputs(p, xin):
     """The projections shared by the chunked and the recurrent forms."""
     z = _proj(xin, p["wz"])
     x = _proj(xin, p["wx"])
-    bb = xin @ p["wB"]
-    cc = xin @ p["wC"]
-    dt = F.softplus(xin @ p["wdt"] + p["dt_bias"])          # (B,S,nh)
+    bb = mm(xin, p["wB"])
+    cc = mm(xin, p["wC"])
+    dt = F.softplus(mm(xin, p["wdt"]) + p["dt_bias"])          # (B,S,nh)
     return z, x, bb, cc, dt
 
 
@@ -109,7 +109,7 @@ def ssd_chunked(a, xbar, bb, cc, q: int, st0=None):
     cr = cc.reshape(b, nc, q, ds)
 
     # ---- intra-chunk: masked (Q x Q) matmuls (the "duality") ----
-    g = torch.einsum("bcid,bcjd->bcij", cr, br)               # (B,nc,Q,Q)
+    g = einsum("bcid,bcjd->bcij", cr, br)               # (B,nc,Q,Q)
     li = cum[:, :, :, None, :]                                # i decay
     lj = cum[:, :, None, :, :]                                # j decay
     mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=a.device))
@@ -118,13 +118,13 @@ def ssd_chunked(a, xbar, bb, cc, q: int, st0=None):
     decay = torch.where(mask[None, None, :, :, None], torch.exp(li - lj),
                         0.0)                                  # (B,nc,Q,Q,nh)
     m = g[..., None] * decay
-    y_intra = torch.einsum("bcijh,bcjhe->bcihe", m, xr)
+    y_intra = einsum("bcijh,bcjhe->bcihe", m, xr)
 
     # ---- chunk states and inter-chunk scan ----
     tail = cum[:, :, -1:, :]                                  # (B,nc,1,nh)
     sdecay = torch.exp(tail - cum)                            # decay to end
     # (B,nc,Q,ds) x (B,nc,Q,nh) x (B,nc,Q,nh,hd) -> (B,nc,nh,ds,hd)
-    s_c = upcast(torch.einsum("bcjd,bcjh,bcjhe->bchde", br, sdecay, xr))
+    s_c = upcast(einsum("bcjd,bcjh,bcjhe->bchde", br, sdecay, xr))
     chunk_a = torch.exp(tail[:, :, 0, :])                     # (B,nc,nh)
 
     h = (upcast(st0) if st0 is not None
@@ -136,8 +136,8 @@ def ssd_chunked(a, xbar, bb, cc, q: int, st0=None):
         h = h * chunk_a[:, ci, :, None, None] + s_c[:, ci]
     h_pre = torch.stack(h_pre, dim=1)                         # (B,nc,nh,ds,hd)
 
-    y_inter = torch.einsum("bcid,bcih,bchde->bcihe",
-                           cr, torch.exp(cum), h_pre.to(cr.dtype))
+    y_inter = einsum("bcid,bcih,bchde->bcihe",
+                     cr, torch.exp(cum), h_pre.to(cr.dtype))
     return (y_intra + y_inter).reshape(b, s_pad, nh, hd)[:, :s], h
 
 
@@ -162,7 +162,7 @@ def apply_mamba(p, xin, cfg: ModelConfig, rt: RunSpec, cache=None):
     y, h = ssd_chunked(a, xbar, bb, cc, min(cfg.ssm_chunk, s), st0)
     y = y + x * p["D"][:, None]
     y = _gated_norm(y, z, p["norm"])
-    out = torch.einsum("bshe,hed->bsd", y, p["wo"]).to(xin.dtype)
+    out = einsum("bshe,hed->bsd", y, p["wo"]).to(xin.dtype)
     return out, (h, (cx, cb, ccs))
 
 
@@ -178,11 +178,11 @@ def mamba_decode(p, xin, cache, cfg: ModelConfig, rt: RunSpec):
     a = torch.exp(dt[:, 0] * (-torch.exp(upcast(p["A_log"]))))
     xbar = (x * dt[..., None])[:, 0]                          # (B,nh,hd)
     st = upcast(st) * a[..., None, None] \
-        + torch.einsum("bd,bhe->bhde", upcast(bb[:, 0]), upcast(xbar))
-    y = torch.einsum("bd,bhde->bhe", cc[:, 0], st.to(cc.dtype))
+        + einsum("bd,bhe->bhde", upcast(bb[:, 0]), upcast(xbar))
+    y = einsum("bd,bhde->bhe", cc[:, 0], st.to(cc.dtype))
     y = y + x[:, 0] * p["D"][:, None]
     y = _gated_norm(y[:, None], z, p["norm"])[:, 0]
-    out = torch.einsum("bhe,hed->bd", y, p["wo"])[:, None].to(xin.dtype)
+    out = einsum("bhe,hed->bd", y, p["wo"])[:, None].to(xin.dtype)
     return out, (st, (cx, cb, ccs))
 
 

@@ -10,6 +10,8 @@ description we derive:
   * ``from_numpy(defs, arrays)`` -- the same tree built from numpy arrays
     (for example the reference package's parameters), checked leaf by
     leaf against the defs;
+  * ``pspecs(defs)``     -- the partition axes of each leaf, as plain
+    tuples (``tuple()`` of the reference's ``PartitionSpec``s);
   * ``count_params(defs)``.
 
 Layer stacks are expressed with ``stack(defs, n)``, which prepends a
@@ -76,6 +78,25 @@ def leaves_with_path(tree, prefix: str = ""):
     return [(prefix[:-1], tree)]
 
 
+def unflatten(tree, leaves):
+    """``tree``'s structure with its leaves replaced, in
+    ``leaves_with_path`` order, by ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            done = {k: build(t[k]) for k in sorted(t)}
+            return {k: done[k] for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
 def stack(defs, n: int):
     """Prepend a layer axis of size n to every ParamDef."""
     return tree_map(lambda d: d.with_stack(n), defs)
@@ -84,6 +105,10 @@ def stack(defs, n: int):
 def abstract(defs, dtype: torch.dtype | None = None):
     return tree_map(lambda d: torch.empty(d.shape, dtype=dtype or d.dtype,
                                           device="meta"), defs)
+
+
+def pspecs(defs):
+    return tree_map(lambda d: d.pspec, defs)
 
 
 def leaf_seed(base: int, path: str) -> int:

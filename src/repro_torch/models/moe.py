@@ -26,7 +26,9 @@ the MoE and is summed (cfg.moe_dense_residual).
 ``observe(fn)`` is an instrumentation seam: inside it, every
 ``apply_moe`` call hands ``fn`` its ``Routing`` (expert ids and the kept
 mask), for counting drops or comparing routings; outside it, nothing is
-recorded.
+recorded.  Under ``RunSpec.remat == "block"`` with grad enabled, the
+backward recomputes each block's forward, so ``fn`` sees each block's
+routing a second time, during the backward.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RunSpec
-from .layers import apply_mlp, mlp_defs, upcast
+from .layers import apply_mlp, bmm, mlp_defs, mm, upcast
 from .module import ParamDef
 
 _OBSERVERS: list[Callable] = []
@@ -82,7 +84,8 @@ class Routing(NamedTuple):
 
 @contextlib.contextmanager
 def observe(fn: Callable[[Routing], None]):
-    """Call ``fn(routing)`` from every ``apply_moe`` inside the block."""
+    """Call ``fn(routing)`` from every ``apply_moe`` inside the block
+    (again for each recomputed block of a remat backward)."""
     _OBSERVERS.append(fn)
     try:
         yield
@@ -95,7 +98,7 @@ def route(p, xt: torch.Tensor, cfg: ModelConfig, c: int) -> Routing:
     n_s, t_loc, _ = xt.shape
     k, e = cfg.moe_top_k, cfg.n_experts
     dev = xt.device
-    scores = torch.softmax(upcast(xt @ p["router"]), dim=-1)
+    scores = torch.softmax(upcast(mm(xt, p["router"])), dim=-1)
     gates, eids = torch.topk(scores, k, dim=-1)
     gates = gates / torch.sum(gates, dim=-1, keepdim=True)
     flat_e = eids.reshape(n_s, -1)
@@ -140,8 +143,8 @@ def apply_moe(p, x, cfg: ModelConfig, rt: RunSpec):
 
     # expert matmuls: (E, stripes*C, d) @ (E, d, f) per projection
     eb = eb.transpose(0, 1).reshape(e, stripes * c, d)
-    h = F.silu(torch.bmm(eb, p["wg"])) * torch.bmm(eb, p["wi"])
-    out_e = torch.bmm(h, p["wo"])                        # (E, stripes*C, d)
+    h = F.silu(bmm(eb, p["wg"])) * bmm(eb, p["wi"])
+    out_e = bmm(h, p["wo"])                        # (E, stripes*C, d)
     flat = out_e.reshape(e, stripes, c, d).transpose(0, 1).reshape(
         stripes, e * c, d)
 
@@ -166,7 +169,8 @@ def apply_moe(p, x, cfg: ModelConfig, rt: RunSpec):
 def aux_load_loss(p, x, cfg: ModelConfig) -> torch.Tensor:
     """Switch-style load-balancing auxiliary loss (mean over tokens)."""
     t = x.shape[0] * x.shape[1]
-    scores = torch.softmax(upcast(x.reshape(t, -1) @ p["router"]), dim=-1)
+    scores = torch.softmax(upcast(mm(x.reshape(t, -1), p["router"])),
+                           dim=-1)
     _, eids = torch.topk(scores, cfg.moe_top_k, dim=-1)
     onehot = F.one_hot(eids, cfg.n_experts).to(scores.dtype)
     frac_tokens = torch.mean(torch.sum(onehot, dim=1), dim=0)

@@ -6,7 +6,7 @@ norms, MLPs and RoPE; then padded heads through the whole model.
 
 Tolerance: 1e-5 of the reference's largest magnitude (``TOL``) for a
 single layer, where the two packages differ by float32 rounding only;
-the whole-model cases use tests/test_torch_models.py's bounds.
+the whole-model cases use tests/torch_lm_cases.py's bounds.
 """
 import math
 
@@ -23,7 +23,7 @@ from repro.models import attention as jattn, layers as jlayers
 from repro_torch.configs import get as get_config
 from repro_torch.configs.base import ModelConfig, RunSpec
 from repro_torch.models import attention, layers, module
-from test_torch_models import check_serving_path
+from torch_lm_cases import check_serving_path
 
 TOL = 1e-5
 
@@ -299,7 +299,7 @@ def test_param_defs_use_plain_axis_tuples():
     assert defs["bq"].init == "zeros"
 
 
-# -- padded heads through the whole model (tests/test_torch_models.py's
+# -- padded heads through the whole model (tests/torch_lm_cases.py's
 # serving-path check and tolerances) ------------------------------------
 
 @pytest.mark.parametrize("arch,tp", [("qwen1.5-0.5b", 4),

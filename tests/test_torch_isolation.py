@@ -40,13 +40,20 @@ def test_import_leaves_out_jax_and_reference():
         "import repro_torch.configs, repro_torch.models.lm\n"
         "import repro_torch.models.attention\n"
         "import repro_torch.models.moe, repro_torch.models.mamba2\n"
+        "import repro_torch.optim.adamw, repro_torch.optim.compress\n"
+        "import repro_torch.train.step, repro_torch.checkpoint.manager\n"
+        "import repro_torch.launch.train, repro_torch.distributed.lockstep\n"
+        "import importlib.util, pathlib\n"
+        "for f in sorted(pathlib.Path('examples').glob('torch_*.py')):\n"
+        "    spec = importlib.util.spec_from_file_location(f.stem, f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "[repro_torch.configs.get(a) for a in repro_torch.configs.ARCHS]\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", code], env=env,
+    proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
@@ -54,6 +61,7 @@ def test_import_leaves_out_jax_and_reference():
 def test_source_scan_finds_no_jax_or_reference_import():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += sorted((ROOT / "scripts").glob("torch_*.py"))
+    files += sorted((ROOT / "examples").glob("torch_*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     names = {f.relative_to(ROOT).as_posix() for f in files}
@@ -83,6 +91,15 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "src/repro_torch/models/lm.py",
             "src/repro_torch/models/moe.py",
             "src/repro_torch/models/mamba2.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/optim/compress.py",
+            "src/repro_torch/train/step.py",
+            "src/repro_torch/checkpoint/manager.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/distributed/lockstep.py",
+            "examples/torch_quickstart.py",
+            "examples/torch_soundscape_ltsa.py",
+            "examples/torch_train_audio_lm.py",
             "scripts/torch_chaos_smoke.py"} <= names
     hits = [f"{f}: {m.group(0).strip()}" for f in files
             for m in FORBIDDEN.finditer(f.read_text())]

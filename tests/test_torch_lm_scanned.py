@@ -10,7 +10,7 @@ then up to 7.6e-6 off at position 2100 (3e-8 op by op); these reduced
 models amplify that to 3.8e-4 to 1.1e-3 relative in the logits (1.7e-2
 for the audio backbone) against the op-by-op run
 (scripts/reference_scan_precision.py; ROADMAP C7).  Tolerances and
-weights as in tests/test_torch_models.py; the float64 reference runs
+weights as in tests/torch_lm_cases.py; the float64 reference runs
 compiled, its scan body within 7.6e-12 of the port's float64.
 
 The op-by-op reference takes 4-25 s an arch here, so the archs are
@@ -20,7 +20,7 @@ different workers.
 """
 import pytest
 
-from test_torch_models import check_serving_path
+from torch_lm_cases import check_serving_path
 
 SCANNED_1 = ["minicpm3-4b", "qwen1.5-0.5b"]
 

@@ -2,7 +2,7 @@
 tests/test_torch_lm_scanned.py)."""
 import pytest
 
-from test_torch_models import check_serving_path
+from torch_lm_cases import check_serving_path
 
 SCANNED_2 = ["internlm2-20b", "starcoder2-7b"]
 

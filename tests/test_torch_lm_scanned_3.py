@@ -3,7 +3,7 @@ tests/test_torch_lm_scanned.py); tests/test_torch_lm_scanned_4.py takes
 the MoE and hybrid archs."""
 import pytest
 
-from test_torch_models import check_serving_path
+from torch_lm_cases import check_serving_path
 
 SCANNED_3 = ["internvl2-1b", "seamless-m4t-large-v2"]
 

@@ -7,7 +7,7 @@ import pytest
 from test_torch_lm_scanned import SCANNED_1
 from test_torch_lm_scanned_2 import SCANNED_2
 from test_torch_lm_scanned_3 import SCANNED_3
-from test_torch_models import ATTN_ARCHS, check_serving_path
+from torch_lm_cases import ATTN_ARCHS, check_serving_path
 
 SCANNED_4 = [a for a in ATTN_ARCHS
              if a not in SCANNED_1 + SCANNED_2 + SCANNED_3]

@@ -23,7 +23,7 @@ from repro.models import mamba2 as jmamba2
 from repro_torch.configs import get as get_config
 from repro_torch.configs.base import ModelConfig, RunSpec
 from repro_torch.models import lm, mamba2, module
-from test_torch_models import make_batch, reference_in_float64
+from torch_lm_cases import make_batch, reference_in_float64
 
 F64_TOL, F32_TOL = 1e-10, 1e-4
 RT = RunSpec(tp=1, remat="none", attn_chunk=64)

@@ -12,7 +12,7 @@ it in an npz.
 Each case: a 15-token prompt, caches of 32 positions, two decode steps
 (positions 15 and 16, which fall in two different sequence shards).
 Tolerances: against the reference within 1e-10 in float64 and within
-tests/test_torch_models.py's one-shot float32 bound of the arch
+tests/torch_lm_cases.py's one-shot float32 bound of the arch
 (``F32_TOL``, ``F32_CAP`` = 1e-4 where not listed); against the port's unsharded decode,
 which differs only in where the sums over the sequence are split,
 within 1e-10 in float64 and ``SPLIT_F32_TOL`` = 1e-5 in float32.
@@ -100,7 +100,7 @@ def reference_main(workdir: str) -> None:
     import repro.configs as jconfigs
     from repro.configs.base import RunSpec as JRunSpec
     from repro.models import lm as jlm
-    from test_torch_models import reference_in_float64
+    from torch_lm_cases import reference_in_float64
 
     assert len(jax.devices()) == 4
     rt = JRunSpec(tp=1, remat="none", attn_chunk=64)
@@ -165,7 +165,7 @@ import repro_torch.configs as configs  # noqa: E402
 from repro_torch.configs.base import RunSpec  # noqa: E402
 from repro_torch.launch.mesh import device_mesh  # noqa: E402
 from repro_torch.models import attention, lm, module  # noqa: E402
-from test_torch_models import (F32_CAP, F32_TOL, Case,  # noqa: E402
+from torch_lm_cases import (F32_CAP, F32_TOL, Case,  # noqa: E402
                                reference_params, rel_err, rt_pair)
 
 RT = rt_pair()[1]

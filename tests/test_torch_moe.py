@@ -23,7 +23,7 @@ from repro.configs.base import RunSpec as JRunSpec
 from repro.models import moe as jmoe
 from repro_torch.configs.base import ModelConfig, RunSpec
 from repro_torch.models import module, moe
-from test_torch_models import reference_in_float64
+from torch_lm_cases import reference_in_float64
 
 F64_TOL, F32_TOL = 1e-10, 1e-4
 
