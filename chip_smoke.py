@@ -62,7 +62,10 @@ bitwise equal to an uninterrupted one under deterministic algorithms,
 in a subprocess, ``--train-resume``; one bf16 step), every reduced
 arch's train step on the card against the CPU, ``crosspod_reduce`` and
 the compressed step over two pods of cuda:0 against the CPU, and the
-audio-LM example (frames from K5) with a checkpoint resume.
+audio-LM example (frames from K5) with a checkpoint resume.  Phase 13
+dry-runs qwen1.5-0.5b's four cells (``repro_torch.launch.dryrun`` on
+``meta`` tensors) and counts phase 12's step under ``FlopCounterMode``
+on ``meta`` and on the card: the two counts must be equal.
 
 Launch counters, set to 0 before each path and read after it, show
 which kernels each path went through (the service drain's counts are
@@ -72,7 +75,7 @@ raises, so the script exits non-zero and never prints the ``ok`` line.
 
 Output, in order: the card (``nvidia-smi`` name and power limit), the
 build, one line per kernel check, per job and per CLI run, a
-``{"kernels": [...]}``
+``{"dryrun": ...}`` JSON line, a ``{"kernels": [...]}``
 JSON line (per kernel: error, kernel / plain / library times and the
 least time the card could take, launches on the paths run), and last
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
@@ -98,10 +101,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3.
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 
 FILE_SEC = 45 * 60        # one paper wav file
 SEED = 20190315
@@ -140,22 +139,6 @@ SWEEP_K6_FRAMES = (1, 31, 32, 33, 70001)
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(f"chip_smoke: {what}")
-
-
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the f32 peak, whichever is larger.  Both count the
-    function's own work — each input read once, each output written
-    once, an FFT's operations for a DFT — not the kernel's algorithm."""
-    t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def psd_flops(n: int, n_bins: int) -> float:
-    """One frame's one-sided PSD: window, a real FFT (~2.5 N log2 N),
-    |X|^2 and the scale or frame sum per bin."""
-    return n + 2.5 * n * math.log2(n) + 4 * n_bins
 
 
 def corpus(p, n_records):
@@ -1021,6 +1004,8 @@ def lm_bounds(lm, module, torch, cfg, rt, batch, tokens, frames,
     read once (for an MoE only ``expert_share`` of the expert weights,
     the share one step routes to) and every cache entry (``cache_specs``
     at f32) -- at the memory rate."""
+    from repro_torch.distributed.roofline import HBM_BW, PEAK_FLOPS
+
     defs = lm.param_defs(cfg, rt)
     count = module.count_params
     enc = count(defs["encoder"]) if "encoder" in defs else 0
@@ -1039,8 +1024,8 @@ def lm_bounds(lm, module, torch, cfg, rt, batch, tokens, frames,
                               enc_len=frames or None)
     cache = sum(t.numel() * t.element_size()
                 for _, t in module.leaves_with_path(specs))
-    return (flops / PEAK_F32_FLOPS * 1e3,
-            (weights * 4 + cache) / PEAK_BYTES * 1e3)
+    return (flops / PEAK_FLOPS[torch.float32] * 1e3,
+            (weights * 4 + cache) / HBM_BW * 1e3)
 
 
 def expert_share(moe, model, tokens, caches, pos):
@@ -1628,9 +1613,14 @@ def train_bound_ms(lm, module, cfg, rt, b, s):
     attention's (B, H, S, S) scores and values (4 B S^2 H hd a layer),
     and the tied head (2 T d V), each forward and backward (twice the
     forward); against the bytes of the update (master, m and v read and
-    written, the grads written and read: 32 bytes a param).  The remat
-    re-forward of the blocks is an implementation's choice, not the
-    function's work: it is returned apart and left out of the bound."""
+    written, the grads written and read: 32 bytes a param), at the
+    card's float32 peak and memory rate (``distributed.roofline``).  The
+    remat re-forward of the blocks is an implementation's choice, not
+    the function's work: it is returned apart and left out of the
+    bound."""
+    import torch
+    from repro_torch.distributed.roofline import HBM_BW, PEAK_FLOPS
+
     defs = lm.param_defs(cfg, rt)
     n = module.count_params(defs)
     t = b * s
@@ -1638,8 +1628,26 @@ def train_bound_ms(lm, module, cfg, rt, b, s):
               + 4 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.hd)
     head = 2 * t * cfg.d_model * cfg.padded_vocab
     flops = 3 * (blocks + head)
-    ms, by = bound_ms(32.0 * n, flops)
-    return ms, by, flops / 1e12, blocks / 1e12
+    mem_s, op_s = 32.0 * n / HBM_BW, flops / PEAK_FLOPS[torch.float32]
+    return (max(mem_s, op_s) * 1e3,
+            "bytes" if mem_s >= op_s else "operations",
+            flops / 1e12, blocks / 1e12)
+
+
+def reforward_gap(module, cfg, defs, tokens):
+    """(early-stop flops, non-matmul flops): what ``train_bound_ms``'s
+    count holds beyond the products a remat-per-block step runs.  The
+    re-forward of a checkpointed block stops after the last op whose
+    output the backward needs (``torch.utils.checkpoint``'s early stop),
+    so each block's last product, the MLP's down-projection, is not
+    recomputed: 2 T d_ff d a layer.  And the analytic count takes every
+    block parameter as a weight at 2 flops a token, four times (forward,
+    backward twice, re-forward), norm scales and biases included."""
+    early = cfg.n_layers * 2 * tokens * cfg.d_ff * cfg.d_model
+    other = sum(int(math.prod(d.shape))
+                for path, d in module.leaves_with_path(defs["blocks"])
+                if not path.rsplit("/", 1)[-1].startswith("w"))
+    return early, 4 * 2 * tokens * other
 
 
 def tree_rel(module, got, want):
@@ -1687,6 +1695,7 @@ def mb_compare(torch, module, trainstep, cfg, rt, opt, state, batch, dtype,
 def train_full_width(np, torch, smi):
     """12a and 12b; returns the numbers of the "train" JSON line."""
     from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed.roofline import PEAK_FLOPS
     from repro_torch.launch.train import synth_batch
     from repro_torch.models import lm, module
     from repro_torch.train import step as trainstep
@@ -1716,10 +1725,13 @@ def train_full_width(np, torch, smi):
 
     ops, busy, span, top, dev_ms, gemm_ms = profiled(
         torch, fn, state, batch, TRAIN_PROFILE_STEPS)
-    # the matmul operations the step runs, the re-forward included, over
+    # the matmul operations the step runs, the re-forward included (less
+    # what its early stop skips, and the norm and bias entries the
+    # analytic count takes as weights; phase 13 counts the same), over
     # the GEMM kernels' device time
-    gemm_rate = ((tflop + remat_tflop) / (gemm_ms / 1e3) if gemm_ms
-                 else None)
+    run_tflop = tflop + remat_tflop - sum(
+        reforward_gap(module, cfg, defs, tokens)) / 1e12
+    gemm_rate = run_tflop / (gemm_ms / 1e3) if gemm_ms else None
 
     # microbatches=2 against 1, on the same state and batch: printed in
     # float32; gated in float64, because at the reference's init the
@@ -1787,6 +1799,7 @@ def train_full_width(np, torch, smi):
            "loss_first": losses[0], "loss_last": losses[-1],
            "grad_norm_last": norms[-1], "tflop_per_step": tflop,
            "remat_tflop_per_step": remat_tflop,
+           "run_tflop_per_step": run_tflop,
            "bound_ms": b_ms, "bound_by": b_by,
            "device_ms_per_step": dev_ms, "gemm_ms_per_step": gemm_ms,
            "gemm_tflops": gemm_rate,
@@ -1801,8 +1814,9 @@ def train_full_width(np, torch, smi):
     gemm_s = ("GEMM time not measured" if gemm_rate is None else
               f"device time a step {dev_ms:.2f} ms of which GEMMs "
               f"{gemm_ms:.2f} ms ({gemm_ms / dev_ms * 100:.1f} %; "
-              f"{gemm_rate:.2f} TFLOP/s, {gemm_rate * 1e14 / PEAK_F32_FLOPS:.1f}"
-              f" % of the f32 peak)")
+              f"{gemm_rate:.2f} TFLOP/s, "
+              f"{gemm_rate * 1e14 / PEAK_FLOPS[torch.float32]:.1f} % of the "
+              f"f32 peak)")
     busy_s = ("not measured (the profiler saw no device activity)"
               if busy is None else f"{busy * 100:.1f} % of {span:.1f} ms "
               f"over {TRAIN_PROFILE_STEPS} steps")
@@ -1812,7 +1826,8 @@ def train_full_width(np, torch, smi):
           f"after {TRAIN_WARMUP}; all {[round(s * 1e3, 2) for s in secs]}), "
           f"{tokens / step_s:.1f} tokens/s, bound {b_ms:.2f} ms "
           f"({b_by}; {tflop:.3f} TFLOP a step, {remat_tflop:.3f} more for "
-          f"the remat re-forward), peak {peak:.3f} GiB, loss "
+          f"the remat re-forward; products run {run_tflop:.3f} TFLOP), "
+          f"peak {peak:.3f} GiB, loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad_norm {norms[-1]:.4f}, "
           f"device ops a step {ops:.0f}, busy {busy_s}, {gemm_s}, top "
           f"device ops "
@@ -2176,7 +2191,106 @@ def phase12(np, torch, counters, smi):
     check(seen["frame_psd"] >= 1 and all(
         n == 0 for c, n in seen.items() if c != "frame_psd"),
           f"phase 12 launched {seen}")
-    return seen
+    return seen, train["step_ms"]
+
+
+# Phase 13: the dry run (repro_torch.launch.dryrun) of TRAIN_ARCH's four
+# cells on the single-pod production mesh, and 12a's step counted on
+# meta tensors and on the card.
+DRYRUN_SKIP = ("long_500k needs sub-quadratic attention; dense is "
+               "full-attention")
+
+
+def phase13(np, torch, counters, step_ms, smi):
+    """Phase 13: ``lower_cell`` for TRAIN_ARCH's four cells, then 12a's
+    step traced on ``meta`` and run once on the card, both under
+    ``FlopCounterMode``: the counts must be equal.  Returns the
+    ``{"dryrun": ...}`` JSON line's content."""
+    from repro_torch.distributed.roofline import PEAK_FLOPS, model_flops
+    from repro_torch.launch import dryrun, shapes as shapeslib
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import lm, module
+    from repro_torch.train import step as trainstep
+
+    for c in counters.values():
+        c.reset()
+    cells = {}
+    for name in shapeslib.SHAPES:
+        rec = dryrun.lower_cell(TRAIN_ARCH, name, False)
+        if name == "long_500k":
+            check(rec["status"] == "skipped" and rec["reason"] == DRYRUN_SKIP,
+                  f"dry run {name}: {rec}")
+            print(f"dryrun {TRAIN_ARCH} {name} single: skipped "
+                  f"({rec['reason']})")
+            cells[name] = rec
+            continue
+        check(rec["status"] == "ok" and 0 < rec["useful_flops_ratio"] <= 1,
+              f"dry run {name}: {rec}")
+        tflop = rec["flops_per_device"] * rec["n_devices"] / 1e12
+        print(f"dryrun {TRAIN_ARCH} {name} single ({rec['n_devices']} meta "
+              f"devices, traced in {rec['compile_s']} s): {tflop:.4f} TFLOP "
+              f"counted, useful_flops_ratio {rec['useful_flops_ratio']:.4f}, "
+              f"a device's terms compute {rec['compute_s']:.6g} s, memory "
+              f"{rec['memory_s']:.6g} s, collective {rec['collective_s']}, "
+              f"dominant {rec['dominant']}")
+        cells[name] = {k: rec[k] for k in (
+            "status", "n_devices", "compile_s", "flops_per_device",
+            "hbm_bytes_per_device", "useful_flops_ratio", "compute_s",
+            "memory_s", "collective_s", "dominant")}
+
+    cfg, rt, opt, defs, fn = train_setup(TRAIN_STEPS)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    batch = synth_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 0, "cuda")
+    t0 = time.perf_counter()
+    meta, meta_bytes = dryrun.count(
+        fn, trainstep.abstract_train_state(defs)[0],
+        {k: v.to("meta") for k, v in batch.items()})
+    meta_s = time.perf_counter() - t0
+    state = trainstep.init_train_state(defs, opt, device="cuda",
+                                       generator=SEED)
+    check(all(t.is_cuda for _, t in module.leaves_with_path(state)),
+          "the counted card step's state is not on the card")
+    t0 = time.perf_counter()
+    card, _ = dryrun.count(fn, state, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    del state
+    torch.cuda.empty_cache()
+    check(meta == card, f"12a's step: {meta} flops counted on meta, {card} "
+                        f"on the card")
+    mf = model_flops(cfg, tokens, train=True)
+    compute_ms = meta / PEAK_FLOPS[torch.float32] * 1e3
+    _, _, tflop, remat_tflop = train_bound_ms(lm, module, cfg, rt,
+                                              TRAIN_BATCH, TRAIN_SEQ)
+    early, other = reforward_gap(module, cfg, defs, tokens)
+    analytic = (tflop + remat_tflop) * 1e12
+    check(abs(analytic - early - other - meta) <= 1e-9 * meta,
+          f"12a's analytic count {analytic} less the early stop {early} "
+          f"and the non-matmul entries {other} is not the meta count {meta}")
+    print(f"dryrun 12a step ({TRAIN_ARCH}, {TRAIN_BATCH} x {TRAIN_SEQ}, f32, "
+          f"remat block): {meta / 1e12:.6f} TFLOP on meta ({meta_s:.2f} s) "
+          f"== {card / 1e12:.6f} TFLOP on the card ({card_s:.2f} s); "
+          f"model_flops (6 N D) {mf / 1e12:.6f} TFLOP; compute term at "
+          f"67 TFLOP/s f32 {compute_ms:.3f} ms; 12a's median step "
+          f"{step_ms:.2f} ms = {step_ms / compute_ms:.3f} x the compute "
+          f"term; op bytes (unfused) {meta_bytes / 1e9:.3f} GB; "
+          f"train_bound_ms's {analytic / 1e12:.6f} TFLOP = the count + "
+          f"{early / 1e12:.6f} (the re-forward's last product of each "
+          f"block, the MLP down-projection, which the checkpoint's early "
+          f"stop does not recompute) + {other / 1e12:.6f} (norm scales and "
+          f"biases counted as weights) ({smi})")
+    seen = {c: counters[c].count for c in counters}
+    print(f"phase 13 launches: {seen}")
+    check(all(n == 0 for n in seen.values()), f"phase 13 launched {seen}")
+    return {"arch": TRAIN_ARCH, "mesh": "single", "cells": cells,
+            "train_12a": {
+                "meta_flops": meta, "card_flops": card, "model_flops": mf,
+                "compute_ms": compute_ms, "step_ms": step_ms,
+                "step_over_compute": step_ms / compute_ms,
+                "op_bytes": meta_bytes, "analytic_flops": analytic,
+                "early_stop_flops": early, "non_matmul_flops": other,
+                "meta_s": meta_s, "card_s": card_s},
+            "device": smi}
 
 
 def main() -> int:
@@ -2206,7 +2320,8 @@ def main() -> int:
     from repro_torch.core.windows import make_window
     from repro_torch.data.wavio import BlockReader, write_dataset
     from repro_torch.kernels import (_build, ct_rfft, events, framepsd, ops,
-                                     tol as tolk, welch as welchk)
+                                     roofline as kroofline, tol as tolk,
+                                     welch as welchk)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -2285,8 +2400,15 @@ def main() -> int:
         return dev_ms, (time.perf_counter() - t0) * 1e3
 
     def record(name, source, replaces, got, want, kernel, plain, library,
-               n_bytes, flops, plain_once=False):
-        b_ms, b_by = bound_ms(n_bytes, flops)
+               cost, io, plain_once=False):
+        """Time one kernel against its plain version.  ``cost``: its
+        ``kernels.roofline.KernelCost`` at these shapes, whose bytes must
+        be those of ``io``, the call's inputs and outputs (4-byte
+        elements), each once."""
+        check(cost.hbm_bytes == 4 * sum(t.numel() for t in io),
+              f"{name}: the cost model counts {cost.hbm_bytes} bytes, the "
+              f"call's tensors hold {4 * sum(t.numel() for t in io)}")
+        b_ms, b_by = cost.bound_s * 1e3, cost.bound
         k_ms, k_host, k_paced = time_ms(kernel)
         p_ms, p_host, p_paced = (*once_ms(plain), True) if plain_once \
             else time_ms(plain)
@@ -2331,8 +2453,6 @@ def main() -> int:
     check(torch.equal(k1, k1_q), "K1 int16 call differs from float32 call")
     w1 = make_window(p1.window, p1.window_size, device=dev)
     sc1_bins = torch.as_tensor(framepsd._bin_scale(p1)[0], device=dev)
-    fpr1 = p1.frames_per_record
-    n1_bins = p1.n_bins
     record("welch_psd", "src/repro_torch/kernels/csrc/framepsd.cu",
            "src/repro/kernels/framepsd.py:239", k1, k1_plain,
            lambda: framepsd.welch_psd(x1, p1),
@@ -2340,8 +2460,7 @@ def main() -> int:
            lambda: (torch.fft.rfft(
                x1.unfold(-1, p1.window_size, p1.hop) * w1, n=p1.nfft)
                .abs().square().mean(dim=-2) * sc1_bins),
-           n_bytes=(x1.numel() + k1.numel()) * 4,
-           flops=8 * fpr1 * psd_flops(p1.nfft, n1_bins))
+           kroofline.welch_psd_cost(*x1.shape, p1), (x1, k1))
 
     # K2 ct_frame_psd: set 2, one step of 8 records = 640 frames
     p2, _m2, pcm2, sc2 = sets["set2"]
@@ -2370,8 +2489,7 @@ def main() -> int:
            lambda: ct_rfft.ct_frame_psd_plain(fr2, p2),
            lambda: (torch.fft.rfft(fr2 * w2, n=p2.nfft).abs().square()
                     * bscale2),
-           n_bytes=(fr2.numel() + k2.numel()) * 4,
-           flops=fr2.shape[0] * psd_flops(p2.nfft, p2.n_bins))
+           kroofline.ct_cost(fr2.shape[0], p2), (fr2, k2))
 
     # K3 welch_mean: the set-2 step's per-frame PSD, (8, 80, 2049)
     fp3 = k2.reshape(8, fpr2, p2.n_bins)
@@ -2387,7 +2505,7 @@ def main() -> int:
            lambda: welchk.welch_mean(fp3),
            lambda: welchk.welch_mean_plain(fp3),
            lambda: torch.mean(fp3, dim=1),
-           n_bytes=(fp3.numel() + k3.numel()) * 4, flops=fp3.numel())
+           kroofline.welch_mean_cost(*fp3.shape), (fp3, k3))
 
     # K4 tol_levels: both sets' Welch PSDs of the step's 8 records, and
     # of SWEEP_K4_RECORDS records (a ragged block of records); timed at
@@ -2415,15 +2533,13 @@ def main() -> int:
     del cases4
     k4 = tolk.tol_levels(k3, bm2, p2)
     k4_plain = tolk.tol_levels_plain(k3, bm2, p2)
-    nb, nbands = bm2.shape
     record("tol_levels", "src/repro_torch/kernels/csrc/tol.cu",
            "src/repro/kernels/tol.py:29", k4, k4_plain,
            lambda: tolk.tol_levels(k3, bm2, p2),
            lambda: tolk.tol_levels_plain(k3, bm2, p2),
            lambda: (10.0 * torch.log10(torch.clamp(
                (k3 @ bm2) * p2.df, min=1e-30)) + p2.gain_db),
-           n_bytes=(8 * nb + nb * nbands + 8 * nbands) * 4,
-           flops=2 * 8 * int(torch.count_nonzero(bm2)) + 3 * 8 * nbands)
+           kroofline.tol_cost(k3.shape[0], band_matrix(p2)), (k3, bm2, k4))
 
     def wav_step(name):
         """The first step (8 records) of a set's detection corpus, read
@@ -2458,8 +2574,7 @@ def main() -> int:
            lambda: (torch.fft.rfft(
                x5.unfold(-1, p1.window_size, p1.hop) * w1, n=p1.nfft)
                .abs().square() * sc1_bins),
-           n_bytes=(x5.numel() + k5.numel()) * 4,
-           flops=8 * fpr1 * psd_flops(p1.nfft, n1_bins))
+           kroofline.frame_psd_cost(*x5.shape, p1), (x5, k5))
 
     # K6 detect_events: on the SPL and peak-bin trace of each set's
     # detection step, from K5's output at set 1 and K2's at set 2, as
@@ -2484,14 +2599,13 @@ def main() -> int:
         check(same6, f"K6 disagrees with its plain version at {name}")
         check(sum(counts6) > 0 and max(counts6) > p.event_capacity,
               f"K6 {name} step found no events or no overflow")
-        k6_bytes = (spl6.numel() + pb6.numel() + k6[0].numel()
-                    + k6[1].numel()) * 4
+        cost6 = kroofline.detect_events_cost(*spl6.shape, p.event_capacity)
         if name == "set1":
             record("detect_events", "src/repro_torch/kernels/csrc/events.cu",
                    "src/repro/kernels/events.py:137", k6, k6_plain,
                    lambda: events.detect_events(spl6, pb6, **ev_kw),
                    lambda: events.detect_events_plain(spl6, pb6, **ev_kw),
-                   None, n_bytes=k6_bytes, flops=0, plain_once=True)
+                   None, cost6, (spl6, pb6, *k6), plain_once=True)
         else:
             # 80 frames a record: the plain loop is short enough for
             # time_ms's queued calls
@@ -2499,7 +2613,7 @@ def main() -> int:
                 lambda: events.detect_events(spl6, pb6, **ev_kw))
             p_ms, p_host, p_paced = time_ms(
                 lambda: events.detect_events_plain(spl6, pb6, **ev_kw))
-            b_ms, b_by = bound_ms(k6_bytes, 0)
+            b_ms, b_by = cost6.bound_s * 1e3, cost6.bound
             print(f"detect_events {name} {tuple(spl6.shape)}: device "
                   f"ms={k_ms:.5f} plain_ms={p_ms:.5f} bound_ms={b_ms:.7f} "
                   f"({b_by}); host ms per call: kernel={k_host:.5f} "
@@ -3273,8 +3387,12 @@ def main() -> int:
     phase_done("11")
 
     # -- phase 12: training ----------------------------------------------------
-    train_launches = phase12(np, torch, counters, smi)
+    train_launches, step_ms = phase12(np, torch, counters, smi)
     phase_done("12")
+
+    # -- phase 13: the dry run, and 12a's step counted on meta and card ------
+    dry = phase13(np, torch, counters, step_ms, smi)
+    phase_done("13")
 
     p, m = sets["set1"][:2]
     torch.cuda.synchronize()
@@ -3297,6 +3415,7 @@ def main() -> int:
         r["service_launches"] = service_launches[r["name"]]
         r["lm_launches"] = lm_launches[r["name"]]
         r["train_launches"] = train_launches[r["name"]]
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

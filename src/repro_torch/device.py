@@ -22,5 +22,9 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             ".device('cpu') to the job builder (or device='cpu') to run "
             "the plain PyTorch path on the CPU")
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}; use 'cpu' or 'cuda'")
+        raise ValueError(
+            f"unsupported device {dev}; use 'cpu' or 'cuda'"
+            + (" (a meta device holds shapes only, for the dry run: "
+               "python -m repro_torch.launch.dryrun)"
+               if dev.type == "meta" else ""))
     return dev

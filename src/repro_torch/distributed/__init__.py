@@ -1,2 +1,3 @@
 """Partitioned execution plans and their placement over executors
-(``partition``)."""
+(``partition``), lock-step collectives (``lockstep``) and the H100's
+roofline terms (``roofline``)."""

@@ -10,9 +10,12 @@ allowed, which is how one card (``["cuda:0"] * 4``) or the CPU
 (``["cpu"] * 4``) hosts several executors.  A ``pod`` axis in front
 (``device_mesh(devices, pod=2)``) carries the training step's cross-pod
 gradient compression (``train.step.make_train_step(compress_pod_axis=
-"pod")``), which runs each pod on one device (``pod_devices``).  The
-production mesh of the reference belongs to its language-model scaffold
-and is not ported.
+"pod")``), which runs each pod on one device (``pod_devices``).
+``make_production_mesh`` gives the reference's production layouts,
+``(16, 16)`` and ``(2, 16, 16)``, over ``meta`` devices: shapes for the
+dry run (``launch.dryrun``), which traces a step on ``meta`` tensors and
+reads the mesh only for its per-device accounting.  No job or step runs
+on it.
 """
 from __future__ import annotations
 
@@ -44,6 +47,18 @@ def _grid(devs: list, data: int, model: int, pod: int = 1) -> HostMesh:
     if pod == 1:
         return HostMesh(grid.reshape(data, model))
     return HostMesh(grid.reshape(pod, data, model), ("pod", "data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> HostMesh:
+    """The reference's production mesh, ``(data=16, model=16)`` or
+    ``(pod=2, data=16, model=16)``, of ``torch.device("meta")``."""
+    pod = 2 if multi_pod else 1
+    return _grid([torch.device("meta")] * (pod * 256), 16, 16, pod)
+
+
+def is_meta(mesh) -> bool:
+    """True when every device of ``mesh`` is ``meta`` (a dry-run mesh)."""
+    return all(torch.device(d).type == "meta" for d in mesh.devices.flat)
 
 
 def device_mesh(devices, model: int = 1, pod: int = 1) -> HostMesh:

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunSpec
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import pod_devices
+from repro_torch.launch.mesh import is_meta, pod_devices
 from repro_torch.models import lm, module
 from repro_torch.models.layers import upcast
 from repro_torch.models.module import leaves_with_path, tree_map
@@ -72,10 +72,17 @@ def make_train_step(cfg: ModelConfig, rt: RunSpec,
     reference; the port runs a step on one device a pod, so only the
     default ``("data",)`` is taken, and any other raises.
     ``compress_pod_axis`` needs ``mesh``, whose axis of that name lists
-    one device per pod; the batch is split over the pods in order."""
+    one device per pod; the batch is split over the pods in order.  A
+    ``meta`` mesh (``launch.mesh.make_production_mesh``) raises: it holds
+    shapes for the dry run, which traces a step without a mesh."""
     if tuple(batch_axes) != ("data",):
         raise ValueError(f"batch_axes={batch_axes!r}: the port lays no "
                          f"batch over mesh axes; only ('data',) is taken")
+    if mesh is not None and is_meta(mesh):
+        raise ValueError(
+            "make_train_step was given a mesh of meta devices, which holds "
+            "shapes for the dry run (python -m repro_torch.launch.dryrun) "
+            "and runs no step; build the mesh with launch.mesh.device_mesh")
     mb = rt.microbatches
     pods = (pod_devices(mesh, compress_pod_axis)
             if compress_pod_axis is not None else None)

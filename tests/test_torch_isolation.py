@@ -43,6 +43,10 @@ def test_import_leaves_out_jax_and_reference():
         "import repro_torch.optim.adamw, repro_torch.optim.compress\n"
         "import repro_torch.train.step, repro_torch.checkpoint.manager\n"
         "import repro_torch.launch.train, repro_torch.distributed.lockstep\n"
+        "import repro_torch.distributed.roofline\n"
+        "import repro_torch.kernels.roofline, repro_torch.launch.shapes\n"
+        "import repro_torch.launch.dryrun\n"
+        "repro_torch.launch.mesh.make_production_mesh(multi_pod=True)\n"
         "import importlib.util, pathlib\n"
         "for f in sorted(pathlib.Path('examples').glob('torch_*.py')):\n"
         "    spec = importlib.util.spec_from_file_location(f.stem, f)\n"
@@ -97,6 +101,10 @@ def test_source_scan_finds_no_jax_or_reference_import():
             "src/repro_torch/checkpoint/manager.py",
             "src/repro_torch/launch/train.py",
             "src/repro_torch/distributed/lockstep.py",
+            "src/repro_torch/distributed/roofline.py",
+            "src/repro_torch/kernels/roofline.py",
+            "src/repro_torch/launch/shapes.py",
+            "src/repro_torch/launch/dryrun.py",
             "examples/torch_quickstart.py",
             "examples/torch_soundscape_ltsa.py",
             "examples/torch_train_audio_lm.py",
