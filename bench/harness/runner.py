@@ -1,0 +1,215 @@
+"""One run of one cell: set-up, the measured window, the check.
+
+Everything that belongs to one kind of traffic -- how records reach the
+program, how its results leave it, what the window measures and what
+the check compares -- is the mix's driver (``drivers/<name>.py``, named
+by the mix's ``driver``).  This module does what every cell shares:
+
+  * set-up, counted in ``setup_s``: the imports, the kernel library, the
+    driver's inputs and job, the job's start and the mix's warm-up
+    steps, which run the window's one step shape (with ``--trace 1``
+    one more step, the profiler's own first);
+  * the window, which the driver drives; the device memory peak over it
+    and, traced, the profile of it;
+  * the check, after the window has closed, the peak has been read and
+    the program's state is freed;
+  * the result line.  Nothing compiles inside the window.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import math
+import subprocess
+import sys
+import time
+
+import torch
+
+from harness import check, discover, trace
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+
+
+@dataclasses.dataclass
+class Context:
+    """What a driver's ``build`` gets."""
+    cfg: dict
+    mix: dict
+    seed: int
+    device: torch.device
+    p: object                   # repro_torch.core.params.DepamParams
+    spans: trace.Spans
+
+
+@dataclasses.dataclass
+class Window:
+    """What one measured window saw; the per-layer readers read this."""
+    steps: int
+    seconds: float
+    host: dict                  # JobStepper.host_seconds over the window
+    trace: trace.Summary | None
+    kernel_costs: dict          # kernel function -> summed cost.Cost
+    extra: dict                 # the driver's own readings
+
+
+def leaked_modules() -> list[str]:
+    """Top-level names of forbidden modules loaded in this process."""
+    top = {name.split(".")[0] for name in list(sys.modules)}
+    return sorted(top & set(FORBIDDEN))
+
+
+def params(cfg: dict):
+    from repro_torch.core.params import DepamParams
+    return DepamParams(fs=float(cfg["fs"]), nfft=int(cfg["nfft"]),
+                       window_size=int(cfg["window_size"]),
+                       window_overlap=int(cfg["window_overlap"]),
+                       record_size_sec=float(cfg["record_size_sec"]),
+                       window=cfg["window"], tol_fmin=float(cfg["tol_fmin"]))
+
+
+def card_limit() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout.strip().splitlines()
+        return out[0] if out else "unknown"
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+
+
+def run(workload: str, seed: int, seconds: float, traced: bool,
+        device: str = "cuda", t_process: float | None = None,
+        overrides: dict | None = None, fault=None,
+        inspect: dict | None = None) -> dict:
+    """One run of ``workload``; returns the result line's object.
+
+    ``overrides`` replaces entries of the configuration and the mix (a
+    rehearsal at a small size on the CPU, a rate of the knee sweep);
+    ``fault`` is called with the driver's job before the window, to
+    break the timed path in tests; ``inspect``, where given, receives
+    the window and, where it asks with ``{"control": True}``, the
+    control's numbers on the same sample."""
+    t_process = time.perf_counter() if t_process is None else t_process
+    spec = discover.benchmark()
+    cellspec = discover.cell(spec, workload)
+    cfg = dict(discover.config(spec, cellspec["config"]))
+    mix = dict(discover.mix(cellspec["traffic"]))
+    for k, v in (overrides or {}).items():
+        (cfg if k in cfg and k not in mix else mix)[k] = v
+    limits = discover.limits(workload)
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_limit() if cuda else "cpu"
+
+    from repro_torch.kernels import ops
+    p = params(cfg)
+    spans = trace.Spans(traced)
+    kspans = trace.KernelSpans(spans, discover.costs(), p)
+    prof = None
+    job = None
+    try:
+        if cuda:
+            from repro_torch.kernels import _build
+            _build.library()
+        job = discover.driver(mix["driver"]).build(
+            Context(cfg, mix, seed, dev, p, spans))
+        if traced:
+            kspans.install(ops)
+        if fault is not None:
+            fault(job)
+        st = job.stepper
+        st.start()
+        job.warm(int(mix["warmup_steps"]))
+        if traced:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if cuda else [])
+            prof = profile(activities=acts)
+            prof.__enter__()
+            job.warm(1)             # the profiler's own first step
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        kspans.total.clear()
+        host0 = dict(st.host_seconds)
+        t0 = time.perf_counter()
+        setup_s = t0 - t_process
+        got = job.window(t0, seconds)
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        summary = None
+        if prof is not None:
+            done, prof = prof, None
+            done.__exit__(None, None, None)
+            if cuda:
+                names = tuple(kspans.costs)
+                events = trace.raw_events(done, trace.HOST_SPANS + names)
+                summary = trace.summarize(events, set(names))
+                if summary is None:
+                    print(f"trace: no window to reduce "
+                          f"{trace.census(events)}", file=sys.stderr)
+        win = Window(steps=got["steps"], seconds=got["seconds"],
+                     host={k: st.host_seconds[k] - host0[k] for k in host0},
+                     trace=summary, kernel_costs=dict(kspans.total),
+                     extra=got.get("extra", {}))
+        st.close()
+        kspans.uninstall(ops)
+
+        # -- the check, with the program's state freed --------------------
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        numbers = job.check(control=False)
+        if inspect is not None:
+            inspect["window"] = win
+            if inspect.get("control"):
+                inspect["control"] = job.check(control=True)
+        correct = got["failed"] == 0 and check.verdict(numbers, limits)
+        e2e = {"setup_s": setup_s,
+               "peak_device_gib": None if peak is None else peak / 2 ** 30,
+               **got["metrics"]}
+        return result_line(spec, workload, traced, win, e2e, peak, card,
+                           numbers, limits, correct, got["attempted"],
+                           got["failed"], dev)
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        kspans.uninstall(ops)
+        if job is not None:
+            job.stepper.close()
+
+
+def result_line(spec, workload, traced, win, e2e, peak, card, numbers,
+                limits, correct, attempted, failed, dev) -> dict:
+    metrics = {}
+    kind = "per_layer" if traced else "end_to_end"
+    for m in discover.metrics_of(spec, workload, kind):
+        value = discover.reader(m["name"])(win) if traced \
+            else e2e.get(m["name"])
+        if value is not None and math.isfinite(value):
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    out = {"correct": bool(correct), "attempted": int(attempted),
+           "failed": int(failed), "metrics": metrics}
+    if dev.type == "cuda":
+        out["device"] = {"platform": "gpu",
+                         "kind": torch.cuda.get_device_name(dev),
+                         "count": 1, "memory_peak_bytes": int(peak)}
+        if traced and win.trace is not None:
+            out["device"]["busy_s"] = win.trace.busy_s
+            out["device"]["window_s"] = win.trace.window_s
+    if traced and win.trace is not None:
+        out["breakdown"] = trace.breakdown(win.trace)
+    out["card"] = card
+    out["setup_s"] = e2e["setup_s"]
+    out["window"] = {"steps": win.steps, "seconds": win.seconds,
+                     "host_s": win.host}
+    if win.kernel_costs:
+        out["roofline_bound"] = {k: v.bound
+                                 for k, v in win.kernel_costs.items()}
+    out["checks"] = {k: {"value": numbers[k], "limit": limits[k]}
+                     for k in limits}
+    return out

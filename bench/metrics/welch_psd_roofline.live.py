@@ -1,0 +1,8 @@
+"""ops.welch_psd: the frozen cost's least time (bench/harness/cost.py) over
+the device time of the kernels its calls launched in the window, in the
+live cell."""
+from harness import readers
+
+
+def read(win):
+    return readers.roofline_pct(win, "welch_psd")
