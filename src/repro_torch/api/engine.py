@@ -63,6 +63,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.compat import carry_from_reference
 from repro_torch.core.manifest import DatasetManifest, ShardPlan
 from repro_torch.core.params import DepamParams
@@ -485,14 +486,16 @@ class _HostToDevice:
         out = {}
         with torch.cuda.stream(self.stream):
             for name, a in arrays.items():
-                a = np.ascontiguousarray(a)
-                dtype = _TORCH_DTYPES[a.dtype]
-                buf = bufs.get(name)
-                if buf is None or buf.dtype != dtype or buf.numel() < a.size:
-                    buf = bufs[name] = torch.empty(a.size, dtype=dtype,
-                                                   pin_memory=True)
-                host = buf[:a.size].view(a.shape)
-                np.copyto(host.numpy(), a)
+                with trace.span("h2d.stage"):
+                    a = np.ascontiguousarray(a)
+                    dtype = _TORCH_DTYPES[a.dtype]
+                    buf = bufs.get(name)
+                    if buf is None or buf.dtype != dtype \
+                            or buf.numel() < a.size:
+                        buf = bufs[name] = torch.empty(
+                            a.size, dtype=dtype, pin_memory=True)
+                    host = buf[:a.size].view(a.shape)
+                    np.copyto(host.numpy(), a)
                 # allocated on the copy stream, which writes it first
                 dev = torch.empty(a.shape, dtype=dtype, device=self.device)
                 dev.copy_(host, non_blocking=True)
@@ -600,12 +603,18 @@ class JobStepper:
     commit it with the cursor, labeled sinks stamp it on their attrs.
 
     ``host_seconds`` accumulates the driver thread's wall time per phase
-    of a step: ``fetch`` (waiting for the source's payload), ``h2d``
-    (staging and enqueueing the host->device copies), ``dispatch``
-    (enqueueing the step, the merge, the carry update and the
-    device->host copies), ``d2h_wait`` (waiting for a drained step's
+    of a step: ``h2d`` (staging and enqueueing the host->device copies),
+    ``dispatch`` (enqueueing the step, the merge, the carry update and
+    the device->host copies), ``d2h_wait`` (waiting for a drained step's
     copies) and ``sink`` (compaction and the sink calls; with an
-    AsyncSink, the enqueue).
+    AsyncSink, the enqueue).  With :mod:`repro_torch.trace` on, the same
+    clock reads also make spans: ``job.step`` (one plan step, attribute
+    ``step``) holds the source's spans (``LiveSource``: ``source.wait``,
+    ``source.copy``), ``job.h2d`` (= ``h2d``; on CUDA its children
+    ``h2d.stage`` are the copies into pinned memory),
+    ``job.dispatch`` (= ``dispatch``) and, where the step drains,
+    ``job.drain`` (= ``d2h_wait`` + ``sink``; its ``step`` is the step
+    drained).
     """
 
     def __init__(self, m: DatasetManifest, p: DepamParams,
@@ -638,7 +647,7 @@ class JobStepper:
         self.device = self.executors[0]
         self.quarantine = quarantine
         self.host_seconds = dict.fromkeys(
-            ("fetch", "h2d", "dispatch", "d2h_wait", "sink"), 0.0)
+            ("h2d", "dispatch", "d2h_wait", "sink"), 0.0)
         self._started = False
         self._closed = False
         self._result = None
@@ -805,9 +814,7 @@ class JobStepper:
         never written)."""
         payload = scales = None
         if not self.source.device_synth:
-            t0 = time.perf_counter()
             payload = np.asarray(next(self._stream))
-            self.host_seconds["fetch"] += time.perf_counter() - t0
             if self._raw:
                 if payload.dtype != np.int16:
                     raise TypeError(
@@ -828,7 +835,6 @@ class JobStepper:
             raise RuntimeError("JobStepper.step_once before start()")
         if self.done:
             return False
-        clock = time.perf_counter
         step = self._step
         idx = self.pl.step_indices(step)
         mask = self._live_mask(idx)
@@ -837,6 +843,13 @@ class JobStepper:
             # beyond what the live source will ever deliver
             self._exhausted = True
             return False
+        with trace.span("job.step", step=step):
+            self._run_step(step, idx, mask)
+        return True
+
+    def _run_step(self, step: int, idx: np.ndarray, mask: np.ndarray):
+        """``step_once``'s work, inside its ``job.step`` span."""
+        clock = time.perf_counter_ns
         segments, rows = _window_rows(
             {k: w.ids(idx, self.m) for k, w in self._wins.items()})
         payload, scales, mask = self._fetch(idx, mask)
@@ -846,6 +859,7 @@ class JobStepper:
                    ("idx", idx)) if v is not None}
         idx_blocks = blocks.pop("idx")
         t0 = clock()
+        trace.begin("job.h2d", t0, step=step)
         devs = []
         for e, h2d in enumerate(self._h2d):
             arrays = {k: b[e] for k, b in blocks.items()}
@@ -856,6 +870,8 @@ class JobStepper:
                     arrays["all_mask"] = mask
             devs.append(h2d.ship(arrays))
         t1 = clock()
+        trace.end(t1)
+        trace.begin("job.dispatch", t1, step=step)
         outs = []
         for fn, dev, idx_e in zip(self._step_fns, devs, idx_blocks):
             if self.source.device_synth:
@@ -884,11 +900,12 @@ class JobStepper:
         self._inflight.append((step, idx, mask, pending, commit,
                                keep_alive))
         self._step += 1
-        self.host_seconds["h2d"] += t1 - t0
-        self.host_seconds["dispatch"] += clock() - t1
+        t2 = clock()
+        trace.end(t2)
+        self.host_seconds["h2d"] += (t1 - t0) / 1e9
+        self.host_seconds["dispatch"] += (t2 - t1) / 1e9
         while len(self._inflight) > self.options.inflight:
             self._drain()
-        return True
 
     def _flush_closed(self, host_state, cursor):
         """Finalize + write every window the cursor just closed, BEFORE
@@ -908,9 +925,10 @@ class JobStepper:
         commit it."""
         step, idx, mask, pending, commit, _keep_alive = \
             self._inflight.popleft()
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
+        trace.begin("job.drain", t0, step=step)
         host = self._d2h.wait(pending)
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
         keep = mask.reshape(-1)
         sel = idx.reshape(-1)[keep]
         # boolean selection copies: the sink gets arrays of its own
@@ -934,8 +952,10 @@ class JobStepper:
             self._flush_closed(agg_host, self.pl.cursor_after(step))
             self.sink.commit(self.pl, step, agg_host,
                              float(host[("carry", "__live__")]))
-        self.host_seconds["d2h_wait"] += t1 - t0
-        self.host_seconds["sink"] += time.perf_counter() - t1
+        t2 = time.perf_counter_ns()
+        trace.end(t2)
+        self.host_seconds["d2h_wait"] += (t1 - t0) / 1e9
+        self.host_seconds["sink"] += (t2 - t1) / 1e9
 
     def _compact(self, host, keep):
         """Host-side compaction: the device returned fixed-capacity

@@ -31,14 +31,26 @@ Semantics:
 Payload transport mirrors the batch sources: ``payload_dtype="int16"``
 rings raw PCM with a per-record decode-scale sidecar (push the scale
 alongside each record), ``"float32"`` rings decoded waveforms.
+
+With :mod:`repro_torch.trace` on, the ring keeps each record's push
+stamp (``perf_counter_ns`` once its copy is in) in a sidecar beside the
+decode scales, and records spans: on the producer's thread
+``source.push`` (attribute ``record``, the first record pushed) with a
+``source.push_wait`` child for the wait for the lock and one for each
+wait for room; on the consumer's ``source.wait`` (attribute
+``ready_ns``: the push stamp of the last live record the fetch waited
+for) and ``source.copy`` (the gather out of the ring, under its lock).
+Tracing off, no stamp is written.
 """
 from __future__ import annotations
 
 import threading
+import time
 from typing import Iterable
 
 import numpy as np
 
+from repro_torch import trace
 from repro_torch.api.sources import Source
 from repro_torch.core.manifest import DatasetManifest
 from repro_torch.core.params import DepamParams, PCM_DECODE_SCALE
@@ -77,6 +89,7 @@ class LiveSource(Source):
         dt = np.int16 if payload_dtype == "int16" else np.float32
         self._buf = np.zeros((self.capacity, self.record_size), dt)
         self._scl = np.full(self.capacity, PCM_DECODE_SCALE, np.float32)
+        self._stamp = np.zeros(self.capacity, np.int64)  # traced pushes
         self._start = int(start)     # first global record of the stream
         self._pushed = int(start)    # next global record to be pushed
         self._consumed = int(start)  # records < this have been fetched
@@ -120,39 +133,50 @@ class LiveSource(Source):
         if scales is not None:
             scl = np.broadcast_to(
                 np.asarray(scales, np.float32).reshape(-1), (len(rec),))
-        with self._cond:
-            for i in range(len(rec)):
-                if self._total is not None:
-                    raise RuntimeError(
-                        "push() after end(): the stream is closed")
-                if self._bound is not None \
-                        and self._pushed >= self._bound:
-                    raise ValueError(
-                        f"push beyond the manifest: the bound job covers "
-                        f"records [{self._start}, {self._bound}) and "
-                        f"record {self._pushed} is past the end — size "
-                        f"the manifest for the stream's maximum length")
-                ok = self._cond.wait_for(
-                    lambda: self._total is not None
-                    or self._pushed - self._consumed < self.capacity,
-                    timeout=timeout)
-                if self._total is not None:
-                    # closed under our feet (consumer went away) — the
-                    # producer must see it, not hang on backpressure
-                    raise RuntimeError(
-                        "push() after end(): the stream is closed")
-                if not ok:
-                    raise RingOverrun(
-                        f"ring full: producer is {self.capacity} records "
-                        f"ahead of the consumer (record {self._pushed} "
-                        f"blocked {timeout}s; consumer at "
-                        f"{self._consumed})")
-                slot = self._pushed % self.capacity
-                self._buf[slot] = rec[i]
-                if scl is not None:
-                    self._scl[slot] = scl[i]
-                self._pushed += 1
-                self._cond.notify_all()
+        with trace.span("source.push", record=self._pushed):
+            with trace.span("source.push_wait"):     # for the lock
+                self._cond.acquire()
+            try:
+                for i in range(len(rec)):
+                    if self._total is not None:
+                        raise RuntimeError(
+                            "push() after end(): the stream is closed")
+                    if self._bound is not None \
+                            and self._pushed >= self._bound:
+                        raise ValueError(
+                            f"push beyond the manifest: the bound job "
+                            f"covers records [{self._start}, "
+                            f"{self._bound}) and record {self._pushed} "
+                            f"is past the end — size the manifest for "
+                            f"the stream's maximum length")
+                    with trace.span("source.push_wait"):  # for room
+                        ok = self._cond.wait_for(
+                            lambda: self._total is not None
+                            or self._pushed - self._consumed
+                            < self.capacity,
+                            timeout=timeout)
+                    if self._total is not None:
+                        # closed under our feet (consumer went away) —
+                        # the producer must see it, not hang on
+                        # backpressure
+                        raise RuntimeError(
+                            "push() after end(): the stream is closed")
+                    if not ok:
+                        raise RingOverrun(
+                            f"ring full: producer is {self.capacity} "
+                            f"records ahead of the consumer (record "
+                            f"{self._pushed} blocked {timeout}s; "
+                            f"consumer at {self._consumed})")
+                    slot = self._pushed % self.capacity
+                    self._buf[slot] = rec[i]
+                    if scl is not None:
+                        self._scl[slot] = scl[i]
+                    if trace.active:
+                        self._stamp[slot] = time.perf_counter_ns()
+                    self._pushed += 1
+                    self._cond.notify_all()
+            finally:
+                self._cond.release()
 
     def end(self) -> None:
         """Signal end-of-stream: no further records will arrive.  The
@@ -217,7 +241,7 @@ class LiveSource(Source):
     def fetch(self, indices: np.ndarray) -> np.ndarray:
         idx = np.asarray(indices, np.int64)
         flat = idx.reshape(-1)
-        out = np.zeros((flat.size, self.record_size), self._buf.dtype)
+        out = np.empty((flat.size, self.record_size), self._buf.dtype)
         with self._cond:
             if (flat < self._start).any():
                 raise ValueError(
@@ -235,8 +259,15 @@ class LiveSource(Source):
                 want = flat[~self._never_arrives(flat)]
                 return want.size == 0 or want.max() < self._pushed
 
-            if not self._cond.wait_for(satisfied,
-                                       timeout=self.fetch_timeout):
+            with trace.span("source.wait") as wait:
+                ok = self._cond.wait_for(satisfied,
+                                         timeout=self.fetch_timeout)
+                if wait and ok:
+                    want = flat[~self._never_arrives(flat)]
+                    if want.size:
+                        wait.set(ready_ns=int(
+                            self._stamp[int(want.max()) % self.capacity]))
+            if not ok:
                 # StreamStall (a TimeoutError) is RETRYABLE AT THE
                 # TENANT LEVEL: a service with a RestartPolicy parks the
                 # tenant and re-admits it from its committed cursor,
@@ -246,18 +277,21 @@ class LiveSource(Source):
                     f"for record "
                     f"{int(flat[~self._never_arrives(flat)].max())} "
                     f"(producer at {self._pushed}, no end() in sight)")
-            have = ~self._never_arrives(flat)      # end() may have moved
-            sel = flat[have]
-            if sel.size:
-                if sel.min() < self._pushed - self.capacity:
-                    raise RingOverrun(
-                        f"record {int(sel.min())} already evicted from "
-                        f"the ring (producer at {self._pushed}, capacity "
-                        f"{self.capacity}) — the consumer fell a full "
-                        f"ring behind")
-                out[have] = self._buf[sel % self.capacity]
-                self._consumed = max(self._consumed, int(sel.max()) + 1)
-                self._cond.notify_all()
+            with trace.span("source.copy"):     # the gather, locked
+                have = ~self._never_arrives(flat)  # end() may have moved
+                sel = flat[have]
+                if sel.size:
+                    if sel.min() < self._pushed - self.capacity:
+                        raise RingOverrun(
+                            f"record {int(sel.min())} already evicted "
+                            f"from the ring (producer at {self._pushed}, "
+                            f"capacity {self.capacity}) — the consumer "
+                            f"fell a full ring behind")
+                    out[have] = self._buf[sel % self.capacity]
+                    self._consumed = max(self._consumed,
+                                         int(sel.max()) + 1)
+                    self._cond.notify_all()
+        out[~have] = 0                  # records that never arrive
         return out.reshape(*idx.shape, self.record_size)
 
     def scales(self, indices: np.ndarray) -> np.ndarray:
