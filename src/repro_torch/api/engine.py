@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 import warnings
 from typing import Callable
@@ -462,7 +463,10 @@ class _HostToDevice:
     is refilled only after the copy that last read it has completed, and
     every device tensor is marked as used by the compute stream, so the
     caching allocator does not hand its memory out while a kernel may
-    still read it.  On the CPU the arrays become tensors in place.
+    still read it.  ``staging`` hands out the next slot's payload
+    buffer, to be filled in place; the next ``ship`` must then be given
+    that buffer as its ``payload`` and does not copy it.  On the CPU the
+    arrays become tensors in place.
     """
 
     def __init__(self, device: torch.device, slots: int):
@@ -473,31 +477,60 @@ class _HostToDevice:
             self._slots = [{} for _ in range(max(2, slots))]
             self._copied: list = [None] * len(self._slots)
             self._next = 0
+            self._staged = None     # the payload buffer staging() gave
+
+    def _pinned(self, slot: int, name: str, shape: tuple,
+                dtype: np.dtype) -> torch.Tensor:
+        """Slot ``slot``'s pinned buffer for ``name``, viewed as
+        ``shape``; (re)allocated when too small or of another dtype."""
+        bufs = self._slots[slot]
+        dtype = _TORCH_DTYPES[np.dtype(dtype)]
+        size = math.prod(shape)
+        buf = bufs.get(name)
+        if buf is None or buf.dtype != dtype or buf.numel() < size:
+            buf = bufs[name] = torch.empty(size, dtype=dtype,
+                                           pin_memory=True)
+        return buf[:size].view(shape)
+
+    def _free(self, slot: int) -> None:
+        """Wait for the copy that last read ``slot``."""
+        if self._copied[slot] is not None:
+            self._copied[slot].synchronize()
+            self._copied[slot] = None
+
+    def staging(self, shape: tuple, dtype) -> np.ndarray:
+        """The next slot's pinned payload buffer, as an array to fill in
+        place and hand to the next ``ship`` as ``payload`` (CUDA only)."""
+        self._free(self._next)
+        self._staged = self._pinned(self._next, "payload", tuple(shape),
+                                    dtype).numpy()
+        return self._staged
 
     def ship(self, arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         if not self.cuda:
             return {k: torch.as_tensor(a) for k, a in arrays.items()}
         slot = self._next
         self._next = (slot + 1) % len(self._slots)
-        if self._copied[slot] is not None:
-            self._copied[slot].synchronize()
-        bufs = self._slots[slot]
+        self._free(slot)
+        staged, self._staged = self._staged, None
         compute = torch.cuda.current_stream(self.device)
         out = {}
         with torch.cuda.stream(self.stream):
             for name, a in arrays.items():
-                with trace.span("h2d.stage"):
-                    a = np.ascontiguousarray(a)
-                    dtype = _TORCH_DTYPES[a.dtype]
-                    buf = bufs.get(name)
-                    if buf is None or buf.dtype != dtype \
-                            or buf.numel() < a.size:
-                        buf = bufs[name] = torch.empty(
-                            a.size, dtype=dtype, pin_memory=True)
-                    host = buf[:a.size].view(a.shape)
-                    np.copyto(host.numpy(), a)
+                a = np.ascontiguousarray(a)
+                host = self._pinned(slot, name, a.shape, a.dtype)
+                if name == "payload" and staged is not None:
+                    if a.ctypes.data != staged.ctypes.data \
+                            or a.shape != staged.shape:
+                        raise RuntimeError(
+                            "ship's payload is not the buffer that "
+                            "staging() handed out")
+                else:
+                    with trace.span("h2d.stage"):
+                        np.copyto(host.numpy(), a)
                 # allocated on the copy stream, which writes it first
-                dev = torch.empty(a.shape, dtype=dtype, device=self.device)
+                dev = torch.empty(a.shape, dtype=host.dtype,
+                                  device=self.device)
                 dev.copy_(host, non_blocking=True)
                 dev.record_stream(compute)
                 out[name] = dev
@@ -611,7 +644,9 @@ class JobStepper:
     clock reads also make spans: ``job.step`` (one plan step, attribute
     ``step``) holds the source's spans (``LiveSource``: ``source.wait``,
     ``source.copy``), ``job.h2d`` (= ``h2d``; on CUDA its children
-    ``h2d.stage`` are the copies into pinned memory),
+    ``h2d.stage`` are the copies into pinned memory; a source with
+    ``fetch_into`` on one CUDA executor fills the payload's pinned
+    buffer during its fetch, and ``ship`` does not copy it again),
     ``job.dispatch`` (= ``dispatch``) and, where the step drains,
     ``job.drain`` (= ``d2h_wait`` + ``sink``; its ``step`` is the step
     drained).
@@ -752,7 +787,12 @@ class JobStepper:
         self._h2d = [_HostToDevice(dev, self.options.inflight + 1)
                      for dev in self.executors]
         self._d2h = _DeviceToHost(self.device)
-        self._stream = None if source.device_synth \
+        # a source that can fill a buffer in place (a live ring) fills
+        # the step's pinned staging slot itself, each record as it lands,
+        # where one CUDA executor stages the whole step
+        self._fill_slot = self._h2d[0].cuda and n_dev == 1 \
+            and hasattr(source, "fetch_into")
+        self._stream = None if source.device_synth or self._fill_slot \
             else source.stream(pl_, start_step, self._n_steps)
         self._started = True
         return self
@@ -814,7 +854,12 @@ class JobStepper:
         never written)."""
         payload = scales = None
         if not self.source.device_synth:
-            payload = np.asarray(next(self._stream))
+            if self._fill_slot:
+                payload = self.source.fetch_into(idx, self._h2d[0].staging(
+                    idx.shape + (self.m.record_size,),
+                    self.source.payload_dtype))
+            else:
+                payload = np.asarray(next(self._stream))
             if self._raw:
                 if payload.dtype != np.int16:
                     raise TypeError(

@@ -26,7 +26,11 @@ Semantics:
     over the same records;
   * **non-blocking polling** — ``poll(indices)`` reports whether a
     fetch would block, which is how the service scheduler skips a
-    starved live tenant instead of stalling every other tenant.
+    starved live tenant instead of stalling every other tenant;
+  * **filling in place** — ``fetch_into(indices, out)`` copies each
+    record into the caller's buffer (the engine's pinned staging slot)
+    as soon as it lands, outside the ring's lock, so a step's earlier
+    records are in place before its last one arrives.
 
 Payload transport mirrors the batch sources: ``payload_dtype="int16"``
 rings raw PCM with a per-record decode-scale sidecar (push the scale
@@ -38,9 +42,11 @@ decode scales, and records spans: on the producer's thread
 ``source.push`` (attribute ``record``, the first record pushed) with a
 ``source.push_wait`` child for the wait for the lock and one for each
 wait for room; on the consumer's ``source.wait`` (attribute
-``ready_ns``: the push stamp of the last live record the fetch waited
-for) and ``source.copy`` (the gather out of the ring, under its lock).
-Tracing off, no stamp is written.
+``ready_ns`` on the last wait of a fetch: the push stamp of the last
+live record the fetch waited for) and ``source.copy`` (one copy out of
+the ring, made outside its lock; attributes ``records``, how many it
+copied, and ``early``, true when a record of the fetch had still to
+land as it began).  Tracing off, no stamp is written.
 """
 from __future__ import annotations
 
@@ -90,9 +96,14 @@ class LiveSource(Source):
         self._buf = np.zeros((self.capacity, self.record_size), dt)
         self._scl = np.full(self.capacity, PCM_DECODE_SCALE, np.float32)
         self._stamp = np.zeros(self.capacity, np.int64)  # traced pushes
+        # each slot's last record copied out, and its scale: the slot
+        # may be refilled before the engine asks for the scale
+        self._taken = np.full(self.capacity, -1, np.int64)
+        self._taken_scl = np.zeros(self.capacity, np.float32)
         self._start = int(start)     # first global record of the stream
         self._pushed = int(start)    # next global record to be pushed
         self._consumed = int(start)  # records < this have been fetched
+        self._reading: list[int] = []    # lowest record of each copy
         self._total: int | None = None   # set by end()
         self._bound: int | None = None   # manifest n_records after bind
         self._auto_ended = False         # close() ended it, not end()
@@ -152,7 +163,8 @@ class LiveSource(Source):
                     with trace.span("source.push_wait"):  # for room
                         ok = self._cond.wait_for(
                             lambda: self._total is not None
-                            or self._pushed - self._consumed
+                            or self._pushed
+                            - min([self._consumed, *self._reading])
                             < self.capacity,
                             timeout=timeout)
                     if self._total is not None:
@@ -240,8 +252,32 @@ class LiveSource(Source):
 
     def fetch(self, indices: np.ndarray) -> np.ndarray:
         idx = np.asarray(indices, np.int64)
+        out = np.empty(idx.shape + (self.record_size,), self._buf.dtype)
+        return self.fetch_into(idx, out)
+
+    def fetch_into(self, indices: np.ndarray, out: np.ndarray) -> np.ndarray:
+        """``fetch`` into ``out``, a C-contiguous array of the ring's
+        dtype shaped ``indices.shape + (record_size,)``; returns ``out``.
+
+        Each wanted record is copied as soon as it has landed: under the
+        lock the fetch waits for the next one, notes which are present
+        and marks them as under copy, then copies them outside the lock
+        with slices of the ring, so the producer keeps pushing.  No slot
+        under copy is refilled, ``_consumed`` advances after the last
+        copy, and records that never arrive are zero-filled.
+        """
+        idx = np.asarray(indices, np.int64)
         flat = idx.reshape(-1)
-        out = np.empty((flat.size, self.record_size), self._buf.dtype)
+        shape = idx.shape + (self.record_size,)
+        if out.shape != shape or out.dtype != self._buf.dtype \
+                or not out.flags.c_contiguous:
+            raise ValueError(
+                f"fetch_into needs a C-contiguous {self._buf.dtype} array "
+                f"of shape {shape}, got {out.dtype} {out.shape}")
+        rows = out.reshape(flat.size, self.record_size)
+        copied = np.zeros(flat.size, bool)
+        deadline = None if self.fetch_timeout is None \
+            else time.monotonic() + self.fetch_timeout
         with self._cond:
             if (flat < self._start).any():
                 raise ValueError(
@@ -254,19 +290,51 @@ class LiveSource(Source):
                     f"one fetch asks for {live.size} live records but "
                     f"the ring holds {self.capacity} — capacity must "
                     f"cover a full plan step (n_shards * chunk)")
+        while True:
+            with self._cond:
+                batch = self._landed(flat, copied, deadline)
+                if batch is None:       # every live record is in place
+                    done = flat[copied]
+                    if done.size:
+                        self._consumed = max(self._consumed,
+                                             int(done.max()) + 1)
+                        self._cond.notify_all()
+                    break
+                pos, early = batch
+                low = int(flat[pos].min())
+                self._reading.append(low)
+            try:
+                with trace.span("source.copy", records=int(pos.size),
+                                early=early):
+                    self._copy_out(rows, pos, flat[pos])
+            finally:
+                with self._cond:
+                    self._reading.remove(low)
+                    self._cond.notify_all()
+            copied[pos] = True
+        rows[~copied] = 0               # records that never arrive
+        return out
 
-            def satisfied():
-                want = flat[~self._never_arrives(flat)]
-                return want.size == 0 or want.max() < self._pushed
+    def _landed(self, flat: np.ndarray, copied: np.ndarray,
+                deadline: float | None):
+        """Under the lock: wait until the next wanted record has landed
+        (or will never arrive), and return the positions in ``flat`` of
+        the wanted records now in the ring, with whether another is
+        still to land; None once nothing is left to copy."""
+        def pending():
+            return ~copied & ~self._never_arrives(flat)
 
-            with trace.span("source.wait") as wait:
-                ok = self._cond.wait_for(satisfied,
-                                         timeout=self.fetch_timeout)
-                if wait and ok:
-                    want = flat[~self._never_arrives(flat)]
-                    if want.size:
-                        wait.set(ready_ns=int(
-                            self._stamp[int(want.max()) % self.capacity]))
+        def next_landed():
+            want = pending()
+            return not want.any() or flat[want].min() < self._pushed
+
+        if not pending().any():
+            return None
+        with trace.span("source.wait") as wait:
+            ok = self._cond.wait_for(
+                next_landed, timeout=None if deadline is None
+                else max(0.0, deadline - time.monotonic()))
+            want = pending()
             if not ok:
                 # StreamStall (a TimeoutError) is RETRYABLE AT THE
                 # TENANT LEVEL: a service with a RestartPolicy parks the
@@ -274,25 +342,37 @@ class LiveSource(Source):
                 # instead of one starved producer killing the job
                 raise StreamStall(
                     f"live fetch starved: waited {self.fetch_timeout}s "
-                    f"for record "
-                    f"{int(flat[~self._never_arrives(flat)].max())} "
+                    f"for record {int(flat[want].max())} "
                     f"(producer at {self._pushed}, no end() in sight)")
-            with trace.span("source.copy"):     # the gather, locked
-                have = ~self._never_arrives(flat)  # end() may have moved
-                sel = flat[have]
-                if sel.size:
-                    if sel.min() < self._pushed - self.capacity:
-                        raise RingOverrun(
-                            f"record {int(sel.min())} already evicted "
-                            f"from the ring (producer at {self._pushed}, "
-                            f"capacity {self.capacity}) — the consumer "
-                            f"fell a full ring behind")
-                    out[have] = self._buf[sel % self.capacity]
-                    self._consumed = max(self._consumed,
-                                         int(sel.max()) + 1)
-                    self._cond.notify_all()
-        out[~have] = 0                  # records that never arrive
-        return out.reshape(*idx.shape, self.record_size)
+            if not want.any():          # end(): the rest never arrives
+                return None
+            here = want & (flat < self._pushed)
+            early = bool((want & ~here).any())
+            if wait and not early:
+                wait.set(ready_ns=int(
+                    self._stamp[int(flat[want].max()) % self.capacity]))
+        sel = flat[here]
+        if sel.min() < self._pushed - self.capacity:
+            raise RingOverrun(
+                f"record {int(sel.min())} already evicted from the ring "
+                f"(producer at {self._pushed}, capacity {self.capacity}) "
+                f"— the consumer fell a full ring behind")
+        slots = sel % self.capacity
+        self._taken[slots] = sel
+        self._taken_scl[slots] = self._scl[slots]
+        return np.flatnonzero(here), early
+
+    def _copy_out(self, rows: np.ndarray, pos: np.ndarray,
+                  recs: np.ndarray) -> None:
+        """``rows[pos] = ring[recs]`` as slice copies: one per run of
+        consecutive positions and records, two where the run wraps."""
+        breaks = np.flatnonzero((np.diff(pos) != 1) | (np.diff(recs) != 1))
+        for a, b in zip(np.r_[0, breaks + 1], np.r_[breaks + 1, pos.size]):
+            p, n = int(pos[a]), int(b - a)
+            s = int(recs[a]) % self.capacity
+            k = min(n, self.capacity - s)
+            rows[p:p + k] = self._buf[s:s + k]
+            rows[p + k:p + n] = self._buf[:n - k]
 
     def scales(self, indices: np.ndarray) -> np.ndarray:
         idx = np.asarray(indices, np.int64)
@@ -302,7 +382,10 @@ class LiveSource(Source):
             have = ~self._never_arrives(flat)
             sel = flat[have]
             if sel.size and sel.max() < self._pushed:
-                out[have] = self._scl[sel % self.capacity]
+                slots = sel % self.capacity
+                out[have] = np.where(self._taken[slots] == sel,
+                                     self._taken_scl[slots],
+                                     self._scl[slots])
         return out.reshape(idx.shape)
 
     def close(self) -> None:

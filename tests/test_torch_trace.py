@@ -107,7 +107,16 @@ def test_on_records_each_step_with_its_id_and_parent(tracer, inflight):
         assert js.thread == driver and js.parent is None
         names = [c.name for c in kids.get(js.id, [])]
         assert STEP_CHILDREN <= set(names), names
-        assert names.count("source.wait") == names.count("source.copy") == 1
+        # the ring copies each record as it lands: one wait and one copy
+        # or more a step, the copies together the step's live records,
+        # and the last wait stamped with the last record's push
+        copies = [c for c in kids[js.id] if c.name == "source.copy"]
+        waits = sorted((c for c in kids[js.id] if c.name == "source.wait"),
+                       key=lambda c: c.start_ns)
+        assert sum(c.attrs["records"] for c in copies) \
+            == st.pl.step_mask(js.attrs["step"]).sum()
+        assert waits[-1].attrs["ready_ns"] <= waits[-1].end_ns
+        assert all("ready_ns" not in w.attrs for w in waits[:-1])
         for c in kids[js.id]:
             assert c.thread == driver
             assert js.start_ns <= c.start_ns <= c.end_ns <= js.end_ns
@@ -118,8 +127,6 @@ def test_on_records_each_step_with_its_id_and_parent(tracer, inflight):
             if c.name == "job.drain":
                 # the step drained, not the one dispatched
                 assert c.attrs["step"] == js.attrs["step"] - inflight
-            if c.name == "source.wait":
-                assert c.attrs["ready_ns"] <= c.end_ns
     drains = [s for s in spans if s.name == "job.drain"]
     assert sorted(s.attrs["step"] for s in drains) == list(range(steps))
     # self time: a span's length less what its children cover
