@@ -85,8 +85,7 @@ class Live:
         try:
             with spans.span(trace.WINDOW_SPAN):
                 for _ in range(self.n // self.chunk):
-                    with spans.span("step_once"):
-                        self.stepper.step_once()
+                    self.stepper.step_once()
         finally:
             pusher.join()
         self.result = self.stepper.finish()

@@ -14,7 +14,10 @@
                                  ``read(window)`` function;
   * ``costs/<function>.py``      the frozen cost of one kernel function
                                  of ``repro_torch.kernels.ops``, a
-                                 ``cost(p, args, kwargs)`` function.
+                                 ``cost(p, args, kwargs)`` function;
+  * ``tests/tiny/configs/<config>.json``, ``tests/tiny/mixes/<traffic>.json``
+                                 the tiny sizes of the CPU rehearsals
+                                 (``tests/bench_tiny.py``).
 
 Adding a configuration, a mix, a driver, a cell, a metric or a kernel
 cost adds files and entries; no file here changes.

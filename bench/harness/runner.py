@@ -10,7 +10,8 @@ by the mix's ``driver``).  This module does what every cell shares:
     steps, which run the window's one step shape (with ``--trace 1``
     one more step, the profiler's own first);
   * the window, which the driver drives; the device memory peak over it
-    and, traced, the profile of it;
+    and, traced, the profile of it and the program's own spans (where
+    the program has a tracer, ``repro_torch.trace``);
   * the check, after the window has closed, the peak has been read and
     the program's state is freed;
   * the result line.  Nothing compiles inside the window.
@@ -51,6 +52,7 @@ class Window:
     trace: trace.Summary | None
     kernel_costs: dict          # kernel function -> summed cost.Cost
     extra: dict                 # the driver's own readings
+    program: trace.Program | None = None    # the program's spans, traced
 
 
 def leaked_modules() -> list[str]:
@@ -60,12 +62,21 @@ def leaked_modules() -> list[str]:
 
 
 def params(cfg: dict):
+    """``DepamParams`` from every field of it that the configuration
+    names, each cast to its default's type; the rest keep the default."""
     from repro_torch.core.params import DepamParams
-    return DepamParams(fs=float(cfg["fs"]), nfft=int(cfg["nfft"]),
-                       window_size=int(cfg["window_size"]),
-                       window_overlap=int(cfg["window_overlap"]),
-                       record_size_sec=float(cfg["record_size_sec"]),
-                       window=cfg["window"], tol_fmin=float(cfg["tol_fmin"]))
+    return DepamParams(**{f.name: type(f.default)(cfg[f.name])
+                          for f in dataclasses.fields(DepamParams)
+                          if f.name in cfg})
+
+
+def program_tracer():
+    """The program's tracer module, where it has one."""
+    try:
+        from repro_torch import trace as tracer
+    except ImportError:
+        return None
+    return tracer if hasattr(tracer, "enable") else None
 
 
 def card_limit() -> str:
@@ -110,6 +121,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
     p = params(cfg)
     spans = trace.Spans(traced)
     kspans = trace.KernelSpans(spans, discover.costs(), p)
+    tracer = program_tracer() if traced else None
     prof = None
     job = None
     try:
@@ -131,23 +143,30 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
                 [ProfilerActivity.CUDA] if cuda else [])
             prof = profile(activities=acts)
             prof.__enter__()
+            if tracer is not None:
+                tracer.enable()
             job.warm(1)             # the profiler's own first step
         if cuda:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
         kspans.total.clear()
         host0 = dict(st.host_seconds)
+        first = tracer.snapshot() if tracer is not None else None
         t0 = time.perf_counter()
         setup_s = t0 - t_process
         got = job.window(t0, seconds)
+        program = None if tracer is None \
+            else trace.Program.between(first, tracer.snapshot())
         peak = torch.cuda.max_memory_allocated(dev) if cuda else None
-        summary = None
+        summary = program_block = None
         if prof is not None:
             done, prof = prof, None
             done.__exit__(None, None, None)
+            names = tuple(kspans.costs)
+            events = trace.raw_events(done, trace.HOST_SPANS + names)
+            if program is not None:
+                program_block = program.block(events)
             if cuda:
-                names = tuple(kspans.costs)
-                events = trace.raw_events(done, trace.HOST_SPANS + names)
                 summary = trace.summarize(events, set(names))
                 if summary is None:
                     print(f"trace: no window to reduce "
@@ -155,7 +174,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
         win = Window(steps=got["steps"], seconds=got["seconds"],
                      host={k: st.host_seconds[k] - host0[k] for k in host0},
                      trace=summary, kernel_costs=dict(kspans.total),
-                     extra=got.get("extra", {}))
+                     extra=got.get("extra", {}), program=program)
         st.close()
         kspans.uninstall(ops)
 
@@ -174,8 +193,10 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
                **got["metrics"]}
         return result_line(spec, workload, traced, win, e2e, peak, card,
                            numbers, limits, correct, got["attempted"],
-                           got["failed"], dev)
+                           got["failed"], dev, program_block)
     finally:
+        if tracer is not None:
+            tracer.disable()
         if prof is not None:
             prof.__exit__(None, None, None)
         kspans.uninstall(ops)
@@ -184,7 +205,8 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
 
 
 def result_line(spec, workload, traced, win, e2e, peak, card, numbers,
-                limits, correct, attempted, failed, dev) -> dict:
+                limits, correct, attempted, failed, dev,
+                program_block=None) -> dict:
     metrics = {}
     kind = "per_layer" if traced else "end_to_end"
     for m in discover.metrics_of(spec, workload, kind):
@@ -210,6 +232,8 @@ def result_line(spec, workload, traced, win, e2e, peak, card, numbers,
     if win.kernel_costs:
         out["roofline_bound"] = {k: v.bound
                                  for k, v in win.kernel_costs.items()}
+    if program_block is not None:
+        out["program_trace"] = program_block
     out["checks"] = {k: {"value": numbers[k], "limit": limits[k]}
                      for k in limits}
     return out

@@ -12,11 +12,19 @@ From the trace of one window it takes:
   * each kernel function's device time: every device operation whose
     launch is linked, through the profiler's correlation ids, to an op
     or span that lies inside that function's span on the host;
-  * the idle gaps between device operations, each labelled by the
-    innermost benchmark span open on the driving thread at the gap.
+  * the idle intervals between device operations, each split by
+    overlap over the innermost span open on the driving thread: the
+    program's own spans (``repro_torch.trace``, each also a profiler
+    range) and, inside ``job.dispatch``, the benchmark's kernel-function
+    spans.
 
 The traced window is the ``bench.window`` span on the driving thread:
 the loop that dispatches the window's steps.
+
+Where the program has a tracer, its spans over the window also reach
+the readers as ``Program``: stamps on ``time.perf_counter_ns``, mapped
+onto the profiler's clock through the clock pairs of the snapshots at
+the window's start and end.
 """
 from __future__ import annotations
 
@@ -24,13 +32,15 @@ import bisect
 import collections
 import contextlib
 import dataclasses
+import functools
 import re
 import threading
 
 DEVICE_ACTIVITIES = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW_SPAN = "bench.window"
 _RUNTIME = re.compile(r"^cu(da)?[A-Z]")      # CUDA runtime and driver calls
-HOST_SPANS = (WINDOW_SPAN, "step_once", "sink.enqueue")
+HOST_SPANS = (WINDOW_SPAN, "sink.enqueue")
+NO_SPAN = "driver outside any span"
 
 
 class Spans:
@@ -144,8 +154,81 @@ class Summary:
     device_ops: int
     op_seconds: dict            # device op name -> seconds in the window
     span_device_s: dict         # kernel function -> device seconds
-    idle_by_label: dict         # host span -> idle seconds
-    idle_gaps: int
+    idle_by_label: dict         # innermost driver span -> idle seconds
+    window_ns: tuple            # the window's bounds, profiler clock
+    busy_ns: list               # merged busy intervals [a, b] within it
+
+    def idle_ns(self) -> list:
+        """The window's intervals with no device operation, ascending."""
+        gaps, prev = [], self.window_ns[0]
+        for a, b in self.busy_ns + [[self.window_ns[1]] * 2]:
+            if a > prev:
+                gaps.append((prev, a))
+            prev = max(prev, b)
+        return gaps
+
+
+@dataclasses.dataclass
+class Program:
+    """The program's own spans over one window: those begun between the
+    tracer's snapshots at the window's start and end."""
+    spans: list                 # repro_torch.trace.Span
+    clocks: tuple               # (perf ns, profiler ns) at start, at end
+    dropped: int                # spans the tracer could not keep
+
+    @classmethod
+    def between(cls, first, last) -> "Program":
+        t0 = first.clocks[1][0]
+        return cls([s for s in last.spans if s.start_ns >= t0],
+                   (first.clocks[1], last.clocks[1]), last.dropped)
+
+    def to_profiler(self, t_ns: int) -> int:
+        """A ``perf_counter_ns`` stamp on the profiler's clock (in whole
+        ns: a float of Unix-epoch ns would round to 256)."""
+        (p0, c0), (p1, c1) = self.clocks
+        return c0 + (t_ns - p0) * (c1 - c0) // (p1 - p0)
+
+    def named(self, name: str) -> list:
+        return [s for s in self.spans if s.name == name]
+
+    def driver(self) -> int | None:
+        """The thread that runs the job's steps."""
+        steps = self.named("job.step")
+        return steps[0].thread if steps else None
+
+    def driver_spans(self) -> list:
+        """The driving thread's spans as ``(start, end, name)`` on the
+        profiler's clock."""
+        d = self.driver()
+        return [(self.to_profiler(s.start_ns), self.to_profiler(s.end_ns),
+                 s.name) for s in self.spans if s.thread == d]
+
+    @functools.cached_property
+    def step_of(self) -> dict:
+        """Span id -> the ``step`` of the ``job.step`` span that holds
+        it, through the spans' parents."""
+        by_id = {s.id: s for s in self.spans}
+        out = {}
+        for s in self.spans:
+            top = s
+            while top is not None and top.name != "job.step":
+                top = by_id.get(top.parent)
+            if top is not None:
+                out[s.id] = top.attrs.get("step")
+        return out
+
+    def block(self, events: list[Event]) -> dict:
+        """What the result line reports of the program's trace: the
+        spans kept and dropped, the share of the window under
+        ``job.step``, and the median and largest skew between a mapped
+        driver span and its own range in the profiler's trace."""
+        (p0, _), (p1, _) = self.clocks
+        step_ns = sum(s.end_ns - s.start_ns for s in self.named("job.step"))
+        skew = sorted(skew_us(self.driver_spans(), events) or [None])
+        return {"kept": len(self.spans), "dropped": self.dropped,
+                "job_step_pct": 100.0 * step_ns / (p1 - p0),
+                "skew_us_median": skew[len(skew) // 2],
+                "skew_us_max": skew[-1]}
 
 
 def _union(intervals):
@@ -160,6 +243,71 @@ def _union(intervals):
     for a, b in merged:
         busy += b - a
     return busy, merged
+
+
+def segments(spans) -> list[tuple]:
+    """Nested spans of one thread, ``(start, end, name)``, as disjoint
+    segments ``(a, b, name)`` labelled by the innermost span open over
+    each, ascending; time under no span gets no segment."""
+    out, stack, t = [], [], None
+
+    def close_to(limit):
+        nonlocal t
+        while stack and (limit is None or stack[-1][1] <= limit):
+            _, end, name = stack.pop()
+            if end > t:
+                out.append((t, end, name))
+                t = end
+
+    for start, end, name in sorted(spans, key=lambda x: (x[0], -x[1])):
+        close_to(start)
+        if stack and start > t:
+            out.append((t, start, stack[-1][2]))
+        t = start if t is None else max(t, start)
+        stack.append((start, end, name))
+    close_to(None)
+    return out
+
+
+def split(intervals, segs) -> collections.Counter:
+    """Length of each disjoint, ascending interval ``(a, b)`` by the
+    label of the segments it overlaps; the rest under ``NO_SPAN``."""
+    out, j = collections.Counter(), 0
+    for a, b in intervals:
+        while j < len(segs) and segs[j][1] <= a:
+            j += 1
+        covered, k = 0, j
+        while k < len(segs) and segs[k][0] < b:
+            over = min(b, segs[k][1]) - max(a, segs[k][0])
+            if over > 0:
+                out[segs[k][2]] += over
+                covered += over
+            k += 1
+        out[NO_SPAN] += (b - a) - covered
+    return out
+
+
+def skew_us(spans, events: list[Event]) -> list[float] | None:
+    """For each driver span ``(start, end, name)`` mapped onto the
+    profiler's clock, the distance in us from its start to the nearest
+    start of a range of the same name on the profiler's driving thread
+    (the thread of ``bench.window``); None without both."""
+    win = [e for e in events if e.name == WINDOW_SPAN]
+    if not win or not spans:
+        return None
+    starts = collections.defaultdict(list)
+    for e in sorted(events, key=lambda e: e.start):
+        if e.thread == win[0].thread and e.activity == "user_annotation":
+            starts[e.name].append(e.start)
+    out = []
+    for start, _, name in spans:
+        lst = starts.get(name, ())
+        i = bisect.bisect_left(lst, start)
+        near = [abs(lst[j] - start) for j in (i - 1, i)
+                if 0 <= j < len(lst)]
+        if near:
+            out.append(min(near) / 1e3)
+    return out or None
 
 
 def census(events: list[Event]) -> dict:
@@ -232,33 +380,18 @@ def summarize(events: list[Event], kernel_names) -> Summary | None:
         if name is not None:
             span_s[name] += (e.end - e.start) / 1e9
 
-    # idle gaps on the device, each labelled by the innermost span open
-    # on the driving thread at its midpoint (spans on one thread nest)
-    driver_spans = sorted((e.start, e.end, e.name) for e in host
-                          if e.thread == driver and e.activity ==
-                          "user_annotation" and e.name != WINDOW_SPAN)
-    gaps, prev = [], ws
-    for a, b in merged + [[we, we]]:
-        if a > prev:
-            gaps.append((prev, a))
-        prev = max(prev, b)
-    idle = collections.Counter()
-    stack, k = [], 0
-    for a, b in gaps:
-        mid = (a + b) / 2
-        while k < len(driver_spans) and driver_spans[k][0] <= mid:
-            while stack and stack[-1][1] < driver_spans[k][0]:
-                stack.pop()
-            stack.append(driver_spans[k])
-            k += 1
-        while stack and stack[-1][1] < mid:
-            stack.pop()
-        label = stack[-1][2] if stack else "driver outside step_once"
-        idle[label] += (b - a) / 1e9
-    return Summary(window_s=(we - ws) / 1e9, busy_s=busy / 1e9,
-                   device_ops=len(dev), op_seconds=dict(op_s),
-                   span_device_s=dict(span_s), idle_by_label=dict(idle),
-                   idle_gaps=len(gaps))
+    out = Summary(window_s=(we - ws) / 1e9, busy_s=busy / 1e9,
+                  device_ops=len(dev), op_seconds=dict(op_s),
+                  span_device_s=dict(span_s), idle_by_label={},
+                  window_ns=(ws, we), busy_ns=merged)
+    # idle on the device by the innermost range open on the driving
+    # thread, split by overlap (ranges on one thread nest)
+    driver_spans = [(e.start, e.end, e.name) for e in host
+                    if e.thread == driver and e.activity ==
+                    "user_annotation" and e.name != WINDOW_SPAN]
+    idle = split(out.idle_ns(), segments(driver_spans))
+    out.idle_by_label = {k: v / 1e9 for k, v in idle.items() if v > 0}
+    return out
 
 
 def breakdown(s: Summary) -> dict:

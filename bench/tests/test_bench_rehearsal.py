@@ -14,6 +14,7 @@ import pytest
 
 import bench_tiny
 from harness import discover, runner
+from repro_torch.kernels import ops
 
 SPEC = discover.benchmark()
 CELLS = [w["name"] for w in SPEC["workloads"]]
@@ -54,24 +55,28 @@ def test_every_part_is_found_by_name(cell):
     mix = discover.mix(w["traffic"])
     assert callable(discover.driver(mix["driver"]).build)
     assert discover.limits(cell)
-    assert set(discover.costs()) == {"welch_psd", "tol_levels"}
+    assert bench_tiny.sizes(cell)
+    files = {p.stem for p in (bench_tiny.BENCH / "costs").glob("*.py")}
+    assert set(discover.costs()) == files
+    for name in files:
+        assert callable(getattr(ops, name)), name
     for m in discover.metrics_of(SPEC, cell, "per_layer"):
         assert callable(discover.reader(m["name"]))
 
 
 def _keys(out, traced, cell):
+    """The result line's keys, and each metric of the cell exactly where
+    ``metrics_of`` lists it: every one but those read from the device,
+    which no CPU run makes up."""
     assert list(out)[:4] == ["correct", "attempted", "failed", "metrics"]
     assert list(out)[-1] == "checks"
     assert "device" not in out and "breakdown" not in out
     kind = "per_layer" if traced else "end_to_end"
-    allowed = {m["name"] for m in discover.metrics_of(SPEC, cell, kind)}
-    assert set(out["metrics"]) <= allowed
+    want = {m["name"] for m in discover.metrics_of(SPEC, cell, kind)
+            if m["source"] != "device_trace"}
+    assert set(out["metrics"]) == want
     for m in out["metrics"].values():
         assert set(m) == {"value", "unit"}
-    # no device number is made up on the CPU
-    for gone in ("peak_device_gib", "device.idle_pct", "device.idle_pct.live",
-                 "dispatch.device_ops_per_step"):
-        assert gone not in out["metrics"]
     assert not any(n.endswith("_roofline") or "roofline." in n
                    for n in out["metrics"])
     json.dumps(out)
@@ -84,7 +89,7 @@ def test_tiny_window(name):
     assert out["correct"], out["checks"]
     assert out["failed"] == 0 and out["attempted"] > 0
     assert "setup_s" in out["metrics"]
-    assert ("record_p95_ms" in out["metrics"]) == (name == "set1.live")
+    assert "program_trace" not in out
     assert runner.leaked_modules() == []
 
 
@@ -93,9 +98,8 @@ def test_tiny_traced_window(name):
     out = bench_tiny.run(name, traced=True)
     _keys(out, True, name)
     assert out["correct"], out["checks"]
-    assert "h2d.ms_per_step.live" in out["metrics"]
-    assert ("live.generator_late_ms" in out["metrics"]) \
-        == (name == "set1.live")
+    assert list(out)[-2] == "program_trace"
+    assert out["program_trace"]["dropped"] == 0
 
 
 def test_arrivals_follow_the_mix_alone():
