@@ -7,10 +7,12 @@ against one shared :class:`FeatureContext`, so all features share the
 Welch and per-frame PSDs and make a single pass over the data.
 
 The reduction carry (epoch aggregates and multi-window LTSA/SPD/extrema
-state) lives on the job's device across the whole job and is copied to
-the host only at the commit boundaries of sinks that persist it, where
-freshly closed windows are finalized and flushed just before the commit
-that covers them.
+state) lives on the job's device across the whole job; a step writes, in
+place, only the rows of the windows its records hit.  The whole carry is
+copied to the host only at the commit boundaries of sinks that persist
+it; a streaming sink that takes window flushes gets only the rows of the
+windows each step closes.  Freshly closed windows are finalized and
+flushed just before the commit that covers them.
 
 Ragged (event) features return fixed-capacity slabs from the step; the
 host compacts them to each record's kept rows and appends those to the
@@ -32,8 +34,9 @@ host waits, never what the device computes:
     copy's CUDA event, so nothing in a step synchronizes the host;
   * device→host: at dispatch, the stored features, the ragged slabs
     and (for commit-consuming sinks) the carry as it stands after this
-    step start copying into fresh pinned buffers on a second stream;
-    draining a step waits on that step's event only;
+    step, or only the rows of the windows the step closes, start
+    copying into fresh pinned buffers on a second stream; draining a
+    step waits on that step's events only;
   * up to ``inflight`` steps stay dispatched before the oldest drains
     into the sink; ``finish`` drains the rest;
   * the job builder adds a :class:`~repro_torch.api.sources.
@@ -219,6 +222,15 @@ def _sk(b: ReductionBinding, field: str) -> str:
     return f"__r:{b.wkey}:{b.out_name}:{field}"
 
 
+def _state_keys(b: ReductionBinding):
+    """One binding's carry keys: each field's, and the Kahan companion
+    of each ``ksum`` field."""
+    for f in b.fields:
+        yield _sk(b, f.name)
+        if f.merge == "ksum":
+            yield _sk(b, f.name) + ":c"
+
+
 def resolve_bindings(specs, m: DatasetManifest, p: DepamParams,
                      job_window: Window | None
                      ) -> tuple[tuple[ReductionBinding, ...],
@@ -271,95 +283,88 @@ def _window_rows(wids: dict[str, np.ndarray]
     return segments, rows.astype(np.int64)
 
 
-_IDENTITY = {"sum": 0.0, "ksum": 0.0, "min": float("inf"),
-             "max": -float("inf")}
+_COMBINE = {"sum": torch.add, "ksum": torch.add, "min": torch.minimum,
+            "max": torch.maximum}
 
 
-def _segment_reduce(merge: str, contribs: torch.Tensor, runs,
-                    rows: torch.Tensor, n_windows: int) -> torch.Tensor:
-    """Reduce rows into window slots in a fixed order: for each window
-    id of ``runs`` (host-known, ascending), one reduction over the rows
-    ``rows[lo:hi]`` that hit it.  Absent windows hold the merge
-    identity."""
-    out = torch.full((n_windows,) + tuple(contribs.shape[1:]),
-                     _IDENTITY[merge], dtype=contribs.dtype,
-                     device=contribs.device)
-    for w, lo, hi in runs:
-        sel = contribs.index_select(0, rows[lo:hi])
+def _window_hits(shard_runs) -> list[tuple[int, list]]:
+    """The windows a step hits, ascending, each with the ``(shard, lo,
+    hi)`` row ranges of the shards that hit it, in ascending shard
+    order."""
+    hits: dict[int, list] = {}
+    for s, runs in enumerate(shard_runs):
+        for w, lo, hi in runs:
+            hits.setdefault(w, []).append((s, lo, hi))
+    return sorted(hits.items())
+
+
+def _window_partial(merge: str, contribs: torch.Tensor, ranges,
+                    rows: torch.Tensor) -> torch.Tensor:
+    """One window's partial: per shard that hits it, one reduction over
+    the rows ``rows[lo:hi]`` of its contributions ``contribs[shard]``,
+    merged in ascending shard order (a resumed partitioned plan keeps
+    its shard count, so the order of every add is fixed by the plan)."""
+    part = None
+    for s, lo, hi in ranges:
+        sel = contribs[s].index_select(0, rows[lo:hi])
         if merge in ("sum", "ksum"):
             red = sel.sum(dim=0, dtype=contribs.dtype)
         elif merge == "min":
             red = sel.amin(dim=0)
         else:
             red = sel.amax(dim=0)
-        out[w] = red
-    return out
-
-
-_COMBINE = {"sum": torch.add, "ksum": torch.add, "min": torch.minimum,
-            "max": torch.maximum}
-
-
-def _merged_segments(merge: str, contribs: torch.Tensor, shard_runs,
-                     rows: torch.Tensor, n_windows: int) -> torch.Tensor:
-    """Per-logical-shard window partials merged in ascending shard order
-    (a resumed partitioned plan keeps its shard count, so the order of
-    every add is fixed by the plan)."""
-    n_shards = len(shard_runs)
-    if n_shards == 1:
-        return _segment_reduce(merge, contribs, shard_runs[0], rows,
-                               n_windows)
-    c = contribs.reshape((n_shards, -1) + tuple(contribs.shape[1:]))
-    part = _segment_reduce(merge, c[0], shard_runs[0], rows, n_windows)
-    for s in range(1, n_shards):
-        part = _COMBINE[merge](part, _segment_reduce(
-            merge, c[s], shard_runs[s], rows, n_windows))
+        part = red if part is None else _COMBINE[merge](part, red)
     return part
 
 
 def compile_reduce_update(bindings: tuple[ReductionBinding, ...]
                           ) -> Callable:
-    """Multi-window carry update: state' = state ⊕ step contributions.
+    """Multi-window carry update, in place: state ⊕= step contributions.
 
     Takes ``(state, outputs, mask, segments, rows)``: ``state`` maps
     ``__r:<window>:<out>:<field>`` to an ``(n_windows, *shape)`` device
-    tensor (plus ``:c`` Kahan companions and the ``__live__`` count),
-    ``mask`` is the step's ``(n_shards, chunk)`` live mask on the
-    device, and ``segments``/``rows`` are :func:`_window_rows` of the
-    step's window ids, the row indices on the device.
+    tensor (plus ``:c`` Kahan companions), ``mask`` is the step's
+    ``(n_shards, chunk)`` live mask on the device, and
+    ``segments``/``rows`` are :func:`_window_rows` of the step's window
+    ids, the row indices on the device.  Only the rows of
+    the windows the step hits are written, each in place; the state
+    mapping itself is returned.  A window no record of the step hits
+    would merge the identity, which leaves its row as it is, so the
+    rows come out with the bits of a full-size ``state ⊕ partial``.
     """
 
     def update(state, out, mask, segments, rows):
         fmask = mask.reshape(-1)
-        new = {}
         for b in bindings:
             val = out[b.feature]
             val = val.reshape((-1,) + tuple(val.shape[2:]))
             contribs = b.red.update(val, fmask)
+            shard_runs = segments[b.wkey]
+            hits = _window_hits(shard_runs)
             for f in b.fields:
+                c = contribs[f.name]
+                c = c.reshape((len(shard_runs), -1) + tuple(c.shape[1:]))
                 key = _sk(b, f.name)
-                part = _merged_segments(f.merge, contribs[f.name],
-                                        segments[b.wkey], rows,
-                                        b.n_windows)
-                if f.merge == "ksum":
-                    y = part - state[key + ":c"]
-                    t = state[key] + y
-                    # zero partials are exact no-ops: without the where,
-                    # the float32 (s, c) rotation would keep perturbing
-                    # rows of already-CLOSED windows, breaking the byte
-                    # identity between rows flushed mid-job and the
-                    # job-end recompute
-                    zero = part == 0
-                    new[key + ":c"] = torch.where(
-                        zero, state[key + ":c"], (t - state[key]) - y)
-                    new[key] = torch.where(zero, state[key], t)
-                elif f.merge == "sum":
-                    new[key] = state[key] + part
-                else:
-                    new[key] = _COMBINE[f.merge](state[key], part)
-        new["__live__"] = state["__live__"] \
-            + mask.sum(dtype=torch.int32)
-        return new
+                for w, ranges in hits:
+                    part = _window_partial(f.merge, c, ranges, rows)
+                    row = state[key][w]
+                    if f.merge == "ksum":
+                        comp = state[key + ":c"][w]
+                        y = part - comp
+                        t = row + y
+                        # zero partials are exact no-ops: without the
+                        # where, the float32 (s, c) rotation would keep
+                        # perturbing the row, breaking the byte identity
+                        # between rows flushed mid-job and the job-end
+                        # recompute
+                        zero = part == 0
+                        torch.where(zero, comp, (t - row) - y, out=comp)
+                        torch.where(zero, row, t, out=row)
+                    elif f.merge == "sum":
+                        row.add_(part)
+                    else:
+                        _COMBINE[f.merge](row, part, out=row)
+        return state
 
     return update
 
@@ -386,10 +391,9 @@ def _init_reduce_state(bindings, resumed, device: torch.device):
             if f.merge == "ksum":
                 state[key + ":c"] = torch.zeros(shape, dtype=torch.float32,
                                                 device=device)
-    state["__live__"] = torch.zeros((), dtype=torch.int32, device=device)
     if resumed is None:
         return state
-    carry = carry_from_reference(*resumed, device)
+    carry = carry_from_reference(resumed[0], device)
     unknown = sorted(set(carry) - set(state))
     missing = sorted(set(state) - set(carry))
     if unknown or missing:
@@ -412,16 +416,17 @@ def _init_reduce_state(bindings, resumed, device: torch.device):
 
 def _finalize_rows(b: ReductionBinding, host_state: dict,
                    lo: int, hi: int) -> np.ndarray:
-    """Finalize window rows [lo, hi) of one binding on the host: the
-    float32 carry widened to float64 (exact), ksum fields corrected, so
-    mid-job flushes and the job-end pass give byte-identical rows."""
+    """Finalize rows [lo, hi) of one binding's host arrays: those rows
+    of the float32 carry widened to float64 (exact), ksum fields
+    corrected, so mid-job flushes and the job-end pass give
+    byte-identical rows."""
     st = {}
     for f in b.fields:
         key = _sk(b, f.name)
-        arr = np.asarray(host_state[key], np.float64)[lo:hi]
+        arr = np.asarray(host_state[key][lo:hi], np.float64)
         if f.merge == "ksum":
-            arr = arr - np.asarray(host_state[key + ":c"],
-                                   np.float64)[lo:hi]
+            arr = arr - np.asarray(host_state[key + ":c"][lo:hi],
+                                   np.float64)
         st[f.name] = arr
     return np.asarray(b.red.finalize(st))
 
@@ -551,7 +556,10 @@ class _DeviceToHost:
     pinned buffer is never refilled while a view of it is alive (the
     host allocator recycles it only once freed), so arrays taken from it
     stay the receiver's own.  On the CPU ``start`` returns numpy views
-    of the tensors themselves, which no later step writes.
+    of the tensors themselves where no later step writes them, and
+    copies of those that later steps rewrite in place
+    (``rewritten=True``: the whole carry); on CUDA the caller orders
+    such a rewrite after the copy's event.
     """
 
     def __init__(self, device: torch.device):
@@ -560,9 +568,10 @@ class _DeviceToHost:
         if self.cuda:
             self.stream = torch.cuda.Stream(device)
 
-    def start(self, tensors: dict) -> tuple:
+    def start(self, tensors: dict, rewritten: bool = False) -> tuple:
         if not self.cuda:
-            return None, {k: t.numpy() for k, t in tensors.items()}
+            return None, {k: (t.clone() if rewritten else t).numpy()
+                          for k, t in tensors.items()}
         self.stream.wait_stream(torch.cuda.current_stream(self.device))
         host = {}
         with torch.cuda.stream(self.stream):
@@ -647,9 +656,21 @@ class JobStepper:
     ``h2d.stage`` are the copies into pinned memory; a source with
     ``fetch_into`` on one CUDA executor fills the payload's pinned
     buffer during its fetch, and ``ship`` does not copy it again),
-    ``job.dispatch`` (= ``dispatch``) and, where the step drains,
-    ``job.drain`` (= ``d2h_wait`` + ``sink``; its ``step`` is the step
-    drained).
+    ``job.dispatch`` (= ``dispatch``; its child ``job.carry`` is the
+    carry update and the start of the carry's copy to the host, with
+    the window rows it writes, ``windows``, and the carry bytes it
+    sends, ``d2h_bytes``) and, where the step drains, ``job.drain`` (=
+    ``d2h_wait`` + ``sink``; its ``step`` is the step drained), whose
+    children are ``drain.compact`` (the event compaction: ``records``,
+    ``events`` kept, ``overflow``: records whose true count exceeds the
+    capacity) and ``job.flush`` (the closed windows written: ``windows``,
+    ``bytes``).
+
+    The carry reaches the host only for a sink that takes commits
+    (``wants_commit``): a resumable sink's commit gets the whole carry
+    as it stood after its step; any other gets no carry, and the drain
+    flushes the windows a step closes from a copy of those rows alone,
+    made at dispatch (closed rows are never written again).
     """
 
     def __init__(self, m: DatasetManifest, p: DepamParams,
@@ -693,6 +714,7 @@ class JobStepper:
         self._inflight: collections.deque = collections.deque()
         self._windows_out: dict[str, np.ndarray] = {}
         self._overflowed = False     # event-capacity warning fired once
+        self._carry_read = None      # event of the last whole-carry copy
 
     def start(self) -> "JobStepper":
         """Bind, build, open the sink, restore committed state.  A
@@ -784,6 +806,15 @@ class JobStepper:
                                         start_cursor)
             if start_step > 0 else 0
             for b in self._windowed}
+        # what the carry copy at dispatch holds: the whole carry, the
+        # closed windows' rows (``_shipped``: the windows copied so far),
+        # or nothing
+        self._commit = None if not self.sink.wants_commit else \
+            "all" if self.sink.resumable else "closed"
+        self._shipped = dict(self._flushed)
+        # live records dispatched, the committed count included: what
+        # each commit and the job's result report
+        self._live = 0 if resumed is None else int(resumed[1])
         self._h2d = [_HostToDevice(dev, self.options.inflight + 1)
                      for dev in self.executors]
         self._d2h = _DeviceToHost(self.device)
@@ -926,23 +957,17 @@ class JobStepper:
                                dev.get("scales")))
         out = outs[0] if n_dev == 1 else _cat_outputs(outs, self.device)
         cmask = devs[0]["all_mask" if n_dev > 1 else "mask"]
-        self._agg_state = self._agg_fn(self._agg_state, out, cmask,
-                                       segments, devs[0]["rows"])
-        # what the drain reads, copied from THIS step's state: the carry
-        # a commit persists must match the step's cursor, however many
-        # steps have been dispatched since
         fetch = {("feature", name): out[name] for name in self._shapes}
         for name in self._ragged:
             fetch[("counts", name)] = out[name]["counts"]
             fetch[("rows", name)] = out[name]["rows"]
-        commit = self.sink.wants_commit
-        if commit:
-            fetch.update({("carry", k): v
-                          for k, v in self._agg_state.items()})
         pending = self._d2h.start(fetch)
+        self._live += int(mask.sum())
+        carry = self._update_carry(step, out, cmask, segments,
+                                   devs[0]["rows"])
         keep_alive = None if self.options.donate \
             else [d.get("payload") for d in devs]
-        self._inflight.append((step, idx, mask, pending, commit,
+        self._inflight.append((step, idx, mask, pending, carry,
                                keep_alive))
         self._step += 1
         t2 = clock()
@@ -952,27 +977,83 @@ class JobStepper:
         while len(self._inflight) > self.options.inflight:
             self._drain()
 
-    def _flush_closed(self, host_state, cursor):
+    def _update_carry(self, step, out, cmask, segments, rows):
+        """The carry update, in place, and for a sink that takes commits
+        the start of the carry's copy to the host, from THIS step's
+        state: the whole carry for a resumable sink (the carry a commit
+        persists must match the step's cursor, so the next update waits
+        for the copy), else the rows of the windows this step's cursor
+        closes, which no later step writes.  Returns None for a sink
+        without commits, else ``(pending copy or None, {output: first
+        row copied} or None for the whole carry, live count)``."""
+        with trace.span("job.carry") as sp:
+            if self._carry_read is not None:
+                torch.cuda.current_stream(self.device).wait_event(
+                    self._carry_read)
+                self._carry_read = None
+            self._agg_state = self._agg_fn(self._agg_state, out, cmask,
+                                           segments, rows)
+            if self._commit is None:
+                tensors, base = {}, None
+            elif self._commit == "all":
+                tensors, base = dict(self._agg_state), None
+            else:
+                tensors, base = {}, {}
+                cursor = self.pl.cursor_after(step)
+                for b in self._windowed:
+                    lo = self._shipped[b.out_name]
+                    hi = _closed_windows(self._edges[b.out_name], cursor)
+                    if hi > lo:
+                        tensors.update({k: self._agg_state[k][lo:hi]
+                                        for k in _state_keys(b)})
+                        base[b.out_name] = lo
+                        self._shipped[b.out_name] = hi
+            pending = None
+            if tensors:
+                pending = self._d2h.start(tensors,
+                                          rewritten=self._commit == "all")
+                if self._commit == "all":
+                    self._carry_read = pending[0]
+            if sp:
+                sp.set(windows=sum(len(_window_hits(r))
+                                   for r in segments.values()),
+                       d2h_bytes=sum(t.numel() * t.element_size()
+                                     for t in tensors.values()))
+        return None if self._commit is None \
+            else (pending, base, self._live)
+
+    def _flush_closed(self, host_state, cursor, base=None):
         """Finalize + write every window the cursor just closed, BEFORE
-        the commit that makes the cursor durable covers them."""
-        for b in self._windowed:
-            closed = _closed_windows(self._edges[b.out_name], cursor)
-            if closed > self._flushed[b.out_name]:
-                rows = _finalize_rows(
-                    b, host_state, self._flushed[b.out_name], closed)
-                self.sink.write_windows(b.out_name,
-                                        self._flushed[b.out_name],
-                                        rows.astype(np.float32))
-                self._flushed[b.out_name] = closed
+        the commit that makes the cursor durable covers them.
+        ``host_state`` holds the whole carry, or with ``base`` each
+        output's rows from ``base[output]`` on."""
+        with trace.span("job.flush") as sp:
+            n = nbytes = 0
+            for b in self._windowed:
+                name = b.out_name
+                lo = self._flushed[name]
+                closed = _closed_windows(self._edges[name], cursor)
+                if closed > lo:
+                    off = 0 if base is None else base[name]
+                    rows = _finalize_rows(b, host_state, lo - off,
+                                          closed - off).astype(np.float32)
+                    self.sink.write_windows(name, lo, rows)
+                    self._flushed[name] = closed
+                    n, nbytes = n + closed - lo, nbytes + rows.nbytes
+            if sp:
+                sp.set(windows=n, bytes=nbytes)
 
     def _drain(self):
         """Wait for the oldest in-flight step's copies, then write and
         commit it."""
-        step, idx, mask, pending, commit, _keep_alive = \
+        step, idx, mask, pending, carry, _keep_alive = \
             self._inflight.popleft()
         t0 = time.perf_counter_ns()
         trace.begin("job.drain", t0, step=step)
         host = self._d2h.wait(pending)
+        if carry is not None:
+            copied, base, live = carry
+            carry_host = {} if copied is None else self._d2h.wait(copied)
         t1 = time.perf_counter_ns()
         keep = mask.reshape(-1)
         sel = idx.reshape(-1)[keep]
@@ -982,12 +1063,24 @@ class JobStepper:
                   for name in self._shapes}
         self.sink.write(step, sel, values)
         if self._ragged:
-            self.sink.write_events(step, sel, self._compact(host, keep))
-        if commit:
+            with trace.span("drain.compact") as sp:
+                ev = self._compact(host, keep)
+                if sp:
+                    cap = self.p.event_capacity
+                    sp.set(records=int(keep.sum()),
+                           events=max(len(r) for _, r in ev.values()),
+                           overflow=max(int((c > cap).sum())
+                                        for c, _ in ev.values()))
+            self.sink.write_events(step, sel, ev)
+        if carry is not None and base is not None:
+            # closed rows only: the sink cannot resume, so its commit
+            # carries no aggregate
+            self._flush_closed(carry_host, self.pl.cursor_after(step), base)
+            self.sink.commit(self.pl, step, {}, float(live))
+        elif carry is not None:
             # the carry in its NATIVE dtypes (float32 / int32): resume
             # casts losslessly, _finalize_rows widens to float64 itself
-            agg_host = {k: v for (kind, k), v in host.items()
-                        if kind == "carry" and k != "__live__"}
+            agg_host = dict(carry_host)
             if self.quarantine is not None:
                 # a snapshot of the bad-record set rides the commit as an
                 # opaque key (bad records are deterministic per record,
@@ -995,8 +1088,7 @@ class JobStepper:
                 # pre-masks records that would fail again anyway)
                 agg_host["__quarantine__"] = self.quarantine.as_array()
             self._flush_closed(agg_host, self.pl.cursor_after(step))
-            self.sink.commit(self.pl, step, agg_host,
-                             float(host[("carry", "__live__")]))
+            self.sink.commit(self.pl, step, agg_host, float(live))
         t2 = time.perf_counter_ns()
         trace.end(t2)
         self.host_seconds["d2h_wait"] += (t1 - t0) / 1e9
@@ -1067,7 +1159,7 @@ class JobStepper:
                     f"record; see JobResult.quarantine for the "
                     f"per-record reasons", RuntimeWarning, stacklevel=2)
         self._result = (self.sink.result(), epoch, self._windows_out,
-                        window_edges, int(host_state["__live__"]), events,
+                        window_edges, self._live, events,
                         self.pl, qreport)
         return self._result
 
@@ -1081,7 +1173,7 @@ class JobStepper:
             return
         self._closed = True
         self._inflight.clear()
-        self._h2d, self._d2h = [], None
+        self._h2d, self._d2h, self._carry_read = [], None, None
         self._agg_state = self._step_fns = self._agg_fn = None
         first: BaseException | None = None
         for release in ((self._stream.close if self._stream is not None

@@ -5,10 +5,12 @@ The engine hands every sink:
   * ``open(manifest, params, shapes, plan)`` — the per-record layout,
     ``{feature: per_record_shape}``, before the first step;
   * ``write(step, indices, values)`` — the live records of one step;
-  * ``commit(plan, step, agg, live)`` — after each step, the reduction
-    carry (``__r:<window>:<out>:<field>`` keys, ``:c`` Kahan companions)
-    as host numpy arrays in their native dtypes; sinks persist the
-    mapping opaquely, which is what makes resume bitwise-exact;
+  * ``commit(plan, step, agg, live)`` — after each step, for a
+    ``resumable`` sink the reduction carry (``__r:<window>:<out>:<field>``
+    keys, ``:c`` Kahan companions) as host numpy arrays in their native
+    dtypes; sinks persist the mapping opaquely, which is what makes
+    resume bitwise-exact.  A sink that cannot resume gets no carry (an
+    empty mapping): its window rows come through ``write_windows``;
   * ``open_windows`` / ``write_windows`` — the windowed outputs'
     layout and their finalized rows (closed windows at commit
     boundaries, the trailing ones at job end);
@@ -121,9 +123,10 @@ def reorder_event_rows(counts: np.ndarray, rows: np.ndarray,
 
 class Sink:
     resumable: bool = False
-    # Whether commit() needs the reduction carry.  The engine keeps the
-    # carry on the device and copies it to the host only at the commit
-    # boundaries of sinks that want it.
+    # Whether the sink takes commits (and with them the mid-job window
+    # flushes).  The engine keeps the carry on the device and copies it
+    # to the host only for such sinks: the whole carry for a resumable
+    # one, else only the rows of the windows each step closes.
     wants_commit: bool = True
 
     def open(self, m: DatasetManifest, p: DepamParams,

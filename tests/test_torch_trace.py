@@ -234,3 +234,84 @@ def test_staging_on_the_card_is_a_child_of_each_h2d(tracer):
         assert stage and {c.name for c in stage} == {"h2d.stage"}
         assert all(s.start_ns <= c.start_ns <= c.end_ns <= s.end_ns
                    for c in stage)
+
+
+P_DET = DepamParams(nfft=256, window_size=256, window_overlap=0,
+                    record_size_sec=256 * 8 / 32768)
+M_DET = DatasetManifest(n_files=1, records_per_file=7,
+                        record_size=P_DET.record_size, fs=P_DET.fs)
+DET_WINDOW = 3
+
+
+def _burst_records(n):
+    """int16 records of 8 frames, loud in every other frame: four events
+    a record."""
+    rng = np.random.default_rng(4)
+    x = rng.integers(-100, 100, (n, P_DET.record_size)).astype(np.int16)
+    for f in range(0, 8, 2):
+        t = np.arange(256)
+        x[:, f * 256:(f + 1) * 256] += (20000 * np.sin(0.3 * t)).astype(
+            np.int16)
+    return x
+
+
+def _run_detect(capacity: int):
+    """A detection job streaming closed windows and events to callbacks;
+    returns the live records of each step and the closed windows."""
+    recs = _burst_records(M_DET.n_records)
+    src = api.ReaderSource(lambda idx: recs[np.asarray(idx) % len(recs)],
+                           payload_dtype="int16")
+    got = {"windows": 0}
+
+    def on_windows(name, start, values):
+        got["windows"] += len(values)
+
+    (api.job(M_DET, P_DET).features("welch", "spd")
+     .events(threshold_db=-30.0, hysteresis_db=3.0, capacity=capacity)
+     .window(records=DET_WINDOW).source(src).payload("int16").chunk(2)
+     .to(api.CallbackSink(lambda *a: None, on_windows=on_windows,
+                          on_events=lambda *a: None))
+     .device("cpu").run())
+    return got
+
+
+def test_carry_flush_and_compaction_spans_carry_their_counters(tracer):
+    with pytest.warns(RuntimeWarning, match="event capacity overflow"):
+        got = _run_detect(capacity=1)
+    spans = trace.snapshot().spans
+    by_id = {s.id: s for s in spans}
+    n_windows = -(-M_DET.n_records // DET_WINDOW)
+    row_bytes = P_DET.n_bins * api.SPD_N_DB * 4     # int32 counts, f32 rows
+    assert got["windows"] == n_windows
+
+    carry = [s for s in spans if s.name == "job.carry"]
+    steps = -(-M_DET.n_records // 2)
+    assert len(carry) == steps
+    for s in carry:
+        parent = by_id[s.parent]
+        assert parent.name == "job.dispatch"
+        assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+        assert s.attrs["windows"] >= 2          # the epoch and a window
+    assert sum(s.attrs["d2h_bytes"] for s in carry) == n_windows * row_bytes
+
+    flush = [s for s in spans if s.name == "job.flush"]
+    compact = [s for s in spans if s.name == "drain.compact"]
+    assert len(flush) == len(compact) == steps
+    for s in flush + compact:
+        parent = by_id[s.parent]
+        assert parent.name == "job.drain"
+        assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+    assert sum(s.attrs["windows"] for s in flush) == n_windows
+    assert sum(s.attrs["bytes"] for s in flush) == n_windows * row_bytes
+    assert sum(s.attrs["records"] for s in compact) == M_DET.n_records
+    for s in compact:
+        # four events a record, one kept: every record overflows
+        assert s.attrs["events"] == s.attrs["records"]
+        assert s.attrs["overflow"] == s.attrs["records"] > 0
+
+
+def test_carry_flush_and_compaction_record_nothing_when_off():
+    trace.enable()
+    trace.disable()
+    _run_detect(capacity=16)
+    assert trace.snapshot().spans == []
