@@ -5,12 +5,14 @@ Run from the root of a checkout on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-It builds the six hand-written CUDA kernels from ``src/repro_torch/
+It builds the seven hand-written CUDA kernels from ``src/repro_torch/
 kernels/csrc`` (nvcc, at first use), holds each against its plain
 PyTorch version at the shapes the paper's paths give it -- and K1, K2
 and K5 at every shape the CPU tests give them too, K4 at a ragged
-block of records, K3 at every shape of SWEEP_K3 and K6 bitwise on
-adversarial traces (``k6_traces``) at every case of ``sweep_k6`` --
+block of records, K3 at every shape of SWEEP_K3, K6 bitwise on
+adversarial traces (``k6_traces``) at every case of ``sweep_k6`` and
+K7 at the set-2 detection cell's step and event mix (``k7_event_mix``)
+and on K6's events of the corpus --
 and drives two paths over one 45-minute paper file for both paper
 parameter sets, each under the synchronous and the pipelined executor
 (``.sync_io()`` / ``.async_io()``):
@@ -415,6 +417,28 @@ def k6_traces(seed, n_rec, n_frames, tile, chunk,
         if i % 4 == 2:
             row[0] = thr
     return spl, pb
+
+
+def k7_event_mix(seed, n_rec, p):
+    """(counts, rows) as K6 gives them in the set-2 detection cell, numpy
+    int32 / float32: half the records struck, each with 0-6 events
+    (about 4) at distinct frames, one frame long and now and then two (a
+    strike across a frame's edge); rows past each count are zero."""
+    import numpy as np
+
+    rng = np.random.default_rng([SEED, 7, seed])
+    nf, cap = p.frames_per_record, p.event_capacity
+    counts = np.zeros(n_rec, np.int32)
+    rows = np.zeros((n_rec, cap, 4), np.float32)
+    for r in range(1, n_rec, 2):
+        k = min(int(rng.binomial(6, 0.7)), cap)
+        onsets = np.sort(rng.choice(nf - 1, k, replace=False))
+        counts[r] = k
+        rows[r, :k, 0] = onsets
+        rows[r, :k, 1] = np.where(rng.random(k) < 0.15, 2, 1)
+        rows[r, :k, 2] = rng.integers(10, 100, k)
+        rows[r, :k, 3] = rng.uniform(5.5, 30.0, k)
+    return counts, rows
 
 
 def guard_steps(stepper, torch):
@@ -2319,9 +2343,9 @@ def main() -> int:
     from repro_torch.core.tol import band_matrix
     from repro_torch.core.windows import make_window
     from repro_torch.data.wavio import BlockReader, write_dataset
-    from repro_torch.kernels import (_build, ct_rfft, events, framepsd, ops,
-                                     roofline as kroofline, tol as tolk,
-                                     welch as welchk)
+    from repro_torch.kernels import (_build, ct_rfft, events, framepsd,
+                                     impulsive, ops, roofline as kroofline,
+                                     tol as tolk, welch as welchk)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -2404,10 +2428,13 @@ def main() -> int:
         """Time one kernel against its plain version.  ``cost``: its
         ``kernels.roofline.KernelCost`` at these shapes, whose bytes must
         be those of ``io``, the call's inputs and outputs (4-byte
-        elements), each once."""
-        check(cost.hbm_bytes == 4 * sum(t.numel() for t in io),
+        elements), each once, or ``io`` itself where it is a byte count
+        (K7 reads only its events' samples)."""
+        io_bytes = io if isinstance(io, int) \
+            else 4 * sum(t.numel() for t in io)
+        check(cost.hbm_bytes == io_bytes,
               f"{name}: the cost model counts {cost.hbm_bytes} bytes, the "
-              f"call's tensors hold {4 * sum(t.numel() for t in io)}")
+              f"call's tensors hold {io_bytes}")
         b_ms, b_by = cost.bound_s * 1e3, cost.bound
         k_ms, k_host, k_paced = time_ms(kernel)
         p_ms, p_host, p_paced = (*once_ms(plain), True) if plain_once \
@@ -2620,6 +2647,84 @@ def main() -> int:
                   f"plain={p_host:.5f}; host-paced: kernel={k_paced} "
                   f"plain={p_paced}")
     del traces
+
+    # K7 impulsive_metrics against its plain version on each set's
+    # detection step, 8 int16 records and their scales as the detection
+    # path reads them (set 2: hop = window, 327 680 samples; set 1: hop <
+    # window, overlapping spans, 1 966 080 samples), with the cell's event
+    # mix (k7_event_mix) and with K6's own events, overflow included;
+    # then timed at set 2, the cell's step, whose inputs the loop leaves
+    for name in ("set1", "set2"):
+        p = sets[name][0]
+        q7, s7 = wav_step(name)
+        x7 = q7.float() * s7[:, None]
+        c7n, r7n = k7_event_mix(0, q7.shape[0], p)
+        spl7, pb7 = spl_trace(ops.frame_psd(q7, p, scales=s7), p)
+        ev7 = events.detect_events(
+            spl7, pb7, threshold_db=EVENT_THRESHOLD_DB,
+            hysteresis_db=EVENT_HYSTERESIS_DB, min_len=p.event_min_len,
+            capacity=p.event_capacity)
+        del spl7, pb7
+        mixes = (("cell mix", (torch.as_tensor(c7n, device=dev),
+                               torch.as_tensor(r7n, device=dev))),
+                 ("K6 events", ev7))
+        for mix, (cnt, rws) in mixes:
+            got = impulsive.impulsive_metrics(q7, cnt, rws, p, scales=s7)
+            got_f = impulsive.impulsive_metrics(x7, cnt, rws, p)
+            again = impulsive.impulsive_metrics(q7, cnt, rws, p, scales=s7)
+            want = impulsive.impulsive_metrics_plain(q7, cnt, rws, p,
+                                                     scales=s7)
+            torch.cuda.synchronize()
+            live = (torch.arange(p.event_capacity, device=dev)[None, :]
+                    < torch.clamp(cnt, max=p.event_capacity)[:, None])
+            g, w = got[live], want[live]
+            exact = (torch.equal(g[:, 1], w[:, 1])
+                     and torch.equal(g[:, 3], w[:, 3])
+                     and torch.equal(got[~live], want[~live]))
+            sel_err = float((g[:, 0] - w[:, 0]).abs().max()) \
+                if g.numel() else 0.0
+            kurt_err = float(((g[:, 2].double() - w[:, 2].double()).abs()
+                              / w[:, 2].double().abs().clamp_min(1.0)).max()) \
+                if g.numel() else 0.0
+            print(f"K7 impulsive_metrics {name} {mix} {tuple(q7.shape)}, "
+                  f"counts {cnt.tolist()}: peak and rise == plain version "
+                  f"bitwise: {exact}; sel max err {sel_err:.3e} dB (tol "
+                  f"{impulsive.SEL_TOL_DB:g}), kurtosis max rel err "
+                  f"{kurt_err:.3e} (tol {impulsive.KURTOSIS_RTOL:g}); int16 "
+                  f"== float32 bitwise: {torch.equal(got, got_f)}; same bits "
+                  f"twice: {torch.equal(got, again)}")
+            check(int(live.sum()) > 0, f"K7 {name} {mix}: no events")
+            check(exact, f"K7 peak or rise differs from its plain version "
+                  f"({name}, {mix})")
+            check(sel_err < impulsive.SEL_TOL_DB
+                  and kurt_err < impulsive.KURTOSIS_RTOL,
+                  f"K7 sel or kurtosis off its plain version ({name}, {mix})")
+            check(torch.equal(got, got_f),
+                  f"K7 int16 != float32 ({name}, {mix})")
+            check(torch.equal(got, again),
+                  f"K7 not deterministic ({name}, {mix})")
+            del got, got_f, again, want, live, g, w
+        del mixes, ev7, x7
+    p2 = sets["set2"][0]
+    c7 = torch.as_tensor(c7n, device=dev)
+    r7 = torch.as_tensor(r7n, device=dev)
+    span7 = kroofline.event_span_samples(c7n, r7n, p2, p2.record_size)
+    cost7 = kroofline.impulsive_metrics_cost(span7, q7.shape[0],
+                                             p2.event_capacity, int16=True)
+    out7 = impulsive.impulsive_metrics(q7, c7, r7, p2, scales=s7)
+    record("impulsive_metrics", "src/repro_torch/kernels/csrc/impulsive.cu",
+           None, out7, impulsive.impulsive_metrics_plain(
+               q7, c7, r7, p2, scales=s7),
+           lambda: impulsive.impulsive_metrics(q7, c7, r7, p2, scales=s7),
+           lambda: impulsive.impulsive_metrics_plain(q7, c7, r7, p2,
+                                                     scales=s7),
+           None, cost7,
+           2 * span7 + 4 * (s7.numel() + c7.numel() + r7.numel()
+                            + out7.numel()))
+    print(f"impulsive_metrics: {int(c7n.sum())} events, {span7} span samples "
+          f"({2 * span7} bytes of int16) over {tuple(q7.shape)}; bound "
+          f"{cost7.bound_s * 1e3:.7f} ms ({cost7.bound})")
+    del q7, s7, out7
 
     phase_done("2")
 
@@ -2959,8 +3064,10 @@ def main() -> int:
     phase_done("3")
 
     # -- phase 4: the detection path, read from the wav files ----------------
-    det_expected = {"set1": {"frame_psd", "detect_events"},
-                    "set2": {"ct_frame_psd", "detect_events"}}
+    det_expected = {"set1": {"frame_psd", "detect_events",
+                             "impulsive_metrics"},
+                    "set2": {"ct_frame_psd", "detect_events",
+                             "impulsive_metrics"}}
 
     def detect(name, payload, store=None, limit=None):
         p, m = sets[name][:2]
@@ -3005,11 +3112,12 @@ def main() -> int:
 
     phase_done("4")
 
-    # -- phase 5: the impulsive einsums under matmul precision "high" --------
-    # TF32 is a process-wide setting the port does not pin for its own
-    # torch matmuls; hold the set-1 detection job's impulsive metrics, run
-    # with it allowed, against a float64 oracle at the CPU test's
-    # tolerances (sel, peak 1e-3 dB; kurtosis 1e-3 rel + 1e-3; rise 2/fs)
+    # -- phase 5: the impulsive metrics under matmul precision "high" -------
+    # TF32 is a process-wide setting the port does not pin; the card's
+    # impulsive metrics (K7) use no matrix product, so it cannot move
+    # them.  Hold the set-1 detection job's impulsive metrics, run with it
+    # allowed, against a float64 oracle at the CPU test's tolerances
+    # (sel, peak 1e-3 dB; kurtosis 1e-3 rel + 1e-3; rise 2/fs)
     p, m = sets["set1"][:2]
     torch.set_float32_matmul_precision("high")
     try:

@@ -61,8 +61,6 @@ def main(argv=None) -> int:
         x[i, s0:s0 + 4096] += 3.0
     bm = torch.as_tensor(band_matrix(p), device=dev)
     imp = get_feature("impulsive")
-    consts = {"impulsive": {"fs": torch.tensor(np.float32(p.fs),
-                                               device=dev)}}
     pe = dataclasses.replace(p, event_threshold_db=-5.0)
 
     ops_ = {
@@ -74,8 +72,8 @@ def main(argv=None) -> int:
         "K5 frame_psd": lambda r: ops.frame_psd(r, p),
         "frame_spl = sum(frame_psd) over bins": lambda r: spectra.db(
             torch.sum(ops.frame_psd(r, p), dim=-1) * p.df, p),
-        "impulsive einsums": lambda r: imp.compute(
-            FeatureContext(r, pe, True, consts))[1],
+        "K7 impulsive_metrics": lambda r: imp.compute(
+            FeatureContext(r, pe, True, {}))[1],
     }
     per = a.records // a.split
     out = {}

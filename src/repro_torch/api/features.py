@@ -588,59 +588,29 @@ def _impulsive_compute(ctx: FeatureContext):
     pile-driving suite): SEL, zero-to-peak level, kurtosis, rise time.
 
     Each detected event's sample span is [onset*hop,
-    (onset+dur-1)*hop + window_size) clipped to the record.  The moment
-    sums are ``einsum`` products over a (batch, capacity, record_size)
-    span mask, as the reference writes them, and the peak a ``max`` /
-    ``argmax`` over the masked x^2: the int16 and float32 payloads see
-    the same float32 ``x`` and the same operations, so they agree
-    bitwise.  No float atomics.  Kurtosis uses the central-moment
-    identities over raw power sums (events are zero-mean-ish pressure,
-    so the cancellation is mild).  Memory is O(capacity) over the
-    waveform, on the device; only capacity rows come home.
+    (onset+dur-1)*hop + window_size) clipped to the record.  The step's
+    own payload goes to ``ops.impulsive_metrics``: on the int16 path the
+    raw PCM and its decode scales, so the dequantized ``ctx.records`` is
+    never built.  The int16 and float32 payloads agree bitwise because
+    both versions turn a sample into the same float32 ``x`` (one exact
+    convert and one float32 multiply, ``common.dequantize``'s) and then
+    run the same operations in an order that does not depend on the
+    payload.  The kernel (K7) reads each event's samples alone, with no
+    float atomics; ``.kernels(False)`` and CPU jobs run the plain
+    version.  Only capacity rows come home.
     """
-    p = ctx.params
     counts, rows = ctx.events
-    x = ctx.records                                   # (B, N) float32
-    n = x.shape[-1]
-    k = p.event_capacity
-    dev = x.device
-    onset = rows[..., 0].to(torch.int32)              # (B, K) frames
-    dur = rows[..., 1].to(torch.int32)
-    valid = torch.arange(k, dtype=torch.int32, device=dev)[None, :] \
-        < torch.clamp(counts, max=k)[:, None]
-    s0 = onset * p.hop                                # first sample
-    s1 = torch.clamp((onset + dur - 1) * p.hop + p.window_size, max=n)
-    idx = torch.arange(n, dtype=torch.int32, device=dev)[None, None, :]
-    span = ((idx >= s0[..., None]) & (idx < s1[..., None])
-            & valid[..., None])                       # (B, K, N) bool
-    spanf = span.to(torch.float32)
-    x2 = x * x
-    pows = (x, x2, x2 * x, x2 * x2)
-    ns = torch.einsum("bkn->bk", spanf)
-    s_1, s_2, s_3, s_4 = (torch.einsum("bn,bkn->bk", v, spanf)
-                          for v in pows)
-    nz = torch.clamp(ns, min=1.0)
-    fs = ctx.const("impulsive", "fs")                 # f32 scalar tensor
-    sel = spectra.db(s_2 / fs, p)                    # dB re 1 uPa^2 s
-    x2m = torch.where(span, x2[:, None, :], 0.0)
-    peak = spectra.db(torch.amax(x2m, dim=-1), p)     # zero-to-peak
-    mean = s_1 / nz
-    m2 = s_2 / nz - mean * mean
-    m4 = (s_4 / nz - 4.0 * mean * (s_3 / nz)
-          + 6.0 * (mean * mean) * (s_2 / nz)
-          - 3.0 * (mean * mean) * (mean * mean))
-    kurt = m4 / torch.clamp(m2 * m2, min=1e-30)
-    rise = (torch.argmax(x2m, dim=-1).to(torch.float32)
-            - s0.to(torch.float32)) / fs
-    vals = torch.stack([sel, peak, kurt, rise], dim=-1)
-    return counts, torch.where(valid[..., None], vals, 0.0)
+    x = ctx.pcm if ctx.quantized else ctx.records
+    return counts, ops.impulsive_metrics(
+        x, counts, rows, ctx.params,
+        scales=ctx.scales if ctx.quantized else None,
+        kernel=ctx.use_kernels)
 
 
 register(FeatureSpec(
     name="impulsive",
     shape=None,
     compute=_impulsive_compute,
-    setup=lambda m, p: {"fs": np.float32(p.fs)},
     ragged=True,
     columns=IMPULSIVE_COLUMNS,
     doc="Per-event impulsive metrics from the raw waveform (pypam "

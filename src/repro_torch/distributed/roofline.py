@@ -10,7 +10,7 @@ The counterpart of the reference's ``distributed/roofline.py``, with
 the card's figures in place of the TPU's.  They come from NVIDIA's H100
 SXM5 80GB data sheet at its 700 W limit: data-sheet peaks, not
 measurements.  ``PEAK_FLOPS`` is keyed by the dtype a step computes in:
-the port's float32 code and its six kernels run on the CUDA cores (67
+the port's float32 code and its seven kernels run on the CUDA cores (67
 TFLOP/s); bf16 products run on the dense tensor cores (989 TFLOP/s).
 
 The reference's ``parse_collectives`` and ``analyze_hlo`` are not here:

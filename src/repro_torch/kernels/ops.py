@@ -16,7 +16,8 @@ Every entry point takes float32 or raw int16 PCM (with the per-record
 dequantizes first, all bitwise-identical to feeding host-decoded float32.
 On a CUDA tensor the kernels launch; on a CPU tensor each kernel module
 runs its plain PyTorch version.  ``detect_events`` (K6) scans a
-frame-SPL trace for loud events.
+frame-SPL trace for loud events, and ``impulsive_metrics`` (K7) reads
+each event's own samples for its impulsive metrics.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.core import spectra
 from . import common, ct_rfft, events as events_kernel, framepsd, \
-    tol as tol_kernel, welch as welch_kernel
+    impulsive as impulsive_kernel, tol as tol_kernel, welch as welch_kernel
 
 
 def psd_backend(p) -> str:
@@ -101,9 +102,29 @@ def detect_events(frame_spl: torch.Tensor, frame_peak_bin: torch.Tensor, p,
               min_len=p.event_min_len, capacity=p.event_capacity)
 
 
+def impulsive_metrics(x: torch.Tensor, counts: torch.Tensor,
+                      rows: torch.Tensor, p,
+                      scales: torch.Tensor | None = None,
+                      kernel: bool = True) -> torch.Tensor:
+    """Per-event impulsive metrics (SEL, zero-to-peak level, kurtosis,
+    rise time) over each detected event's samples.
+
+    x: (n_records, record_size) float32, or raw int16 PCM with the
+    per-record ``scales`` sidecar; counts / rows: ``detect_events``'s
+    output.  Returns ``(n_records, event_capacity, 4)`` float32, zeros
+    past each record's kept events — see kernels/impulsive.py.
+    ``kernel=False`` runs the plain version on any device."""
+    if kernel:
+        return impulsive_kernel.impulsive_metrics(x, counts, rows, p,
+                                                  scales=scales)
+    impulsive_kernel.check_inputs(x, counts, rows, scales, p)
+    return impulsive_kernel.impulsive_metrics_plain(x, counts, rows, p,
+                                                    scales=scales)
+
+
 def launch_counters() -> dict[str, "common.LaunchCounter"]:
     """Every kernel's launch counter, by kernel name."""
     return {c.name: c for c in (
         framepsd.LAUNCHES, ct_rfft.LAUNCHES, welch_kernel.LAUNCHES,
         tol_kernel.LAUNCHES, framepsd.LAUNCHES_FRAME,
-        events_kernel.LAUNCHES)}
+        events_kernel.LAUNCHES, impulsive_kernel.LAUNCHES)}

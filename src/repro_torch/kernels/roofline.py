@@ -1,4 +1,4 @@
-"""Cost model of the port's six CUDA kernels (K1-K6) on one H100.
+"""Cost model of the port's seven CUDA kernels (K1-K7) on one H100.
 
 The counterpart of the reference's ``kernels/roofline.py``, which models
 Pallas BlockSpecs against a TPU core's VMEM; none of that carries over.
@@ -6,7 +6,8 @@ Each function here gives, for one call at the given shapes, the
 function's own work, not the kernel's algorithm: ``hbm_bytes``, each
 float32 input read once and each output written once, and ``flops``, an
 FFT's 2.5 N log2 N operations a frame for a DFT (``psd_flops``) and
-K4's band-matrix non-zeros.  These set the bound ``chip_smoke.py`` holds
+K4's band-matrix non-zeros, and for K7 the samples of the events it
+is given, which only the call's counts and rows say.  These set the bound ``chip_smoke.py`` holds
 each kernel's device time against.  The work is the same on every
 launch route (K1 and K5's FFT route or direct tile), so the model holds
 no launch plan: grids and shared memory belong to the wrappers' plans
@@ -112,3 +113,36 @@ def detect_events_cost(n_records: int, n_frames: int,
     floating-point work."""
     return KernelCost(_F32 * (2 * n_records * n_frames + n_records
                               + n_records * capacity * 4), 0.0)
+
+
+def event_span_samples(counts, rows, p, record_size: int) -> int:
+    """The samples K7 reads for a step's events: over each record's
+    first ``min(count, capacity)`` rows, ``[onset*hop, (onset+dur-1)*hop
+    + window_size)`` clipped to the record.  ``counts`` (R,) and ``rows``
+    (R, capacity, 4) as ``detect_events`` gives them (any array-like)."""
+    counts = np.asarray(counts).reshape(-1)
+    rows = np.asarray(rows)
+    cap = rows.shape[1]
+    live = np.arange(cap)[None, :] < np.minimum(counts, cap)[:, None]
+    onset = rows[..., 0].astype(np.int64)
+    dur = rows[..., 1].astype(np.int64)
+    s1 = np.minimum((onset + dur - 1) * p.hop + p.window_size, record_size)
+    return int(np.sum(np.where(live, np.maximum(s1 - onset * p.hop, 0),
+                               0)))
+
+
+def impulsive_metrics_cost(span_samples: int, n_records: int,
+                           capacity: int, int16: bool = False
+                           ) -> KernelCost:
+    """K7 ``impulsive.impulsive_metrics``: each event's span samples read
+    once (2-byte int16 PCM and a 4-byte decode scale a record, or 4-byte
+    float32), counts (R,) int32 and rows (R, capacity, 4) float32 read
+    once, the (R, capacity, 4) float32 output written once.  Operations:
+    a sample's x^2, x^3, x^4, its four sums and its max compare (one more
+    multiply to dequantize int16); the per-slot finish is negligible."""
+    sample_bytes = 2 if int16 else 4
+    scales = _F32 * n_records if int16 else 0
+    return KernelCost(
+        sample_bytes * span_samples + scales
+        + _F32 * (n_records + 2 * n_records * capacity * 4),
+        float((9 if int16 else 8) * span_samples))

@@ -520,9 +520,10 @@ def cuda():
 
 @pytest.mark.cuda
 def test_impulsive_on_card_under_high_matmul_precision(cuda):
-    """The impulsive metrics' torch einsums on the card, with the
-    process-wide float32 matmul precision set to "high" (TF32 allowed),
-    still within the float64 oracle's tolerances."""
+    """The impulsive metrics on the card, with the process-wide float32
+    matmul precision set to "high" (TF32 allowed), still within the
+    float64 oracle's tolerances: the card path is K7, which uses no
+    matrix product, so the setting cannot reach it."""
     recs = make_pulses(M0, P0)
 
     def reader(idx):

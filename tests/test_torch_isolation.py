@@ -154,7 +154,8 @@ def test_build_dir_stays_in_checkout_or_named_place(monkeypatch, tmp_path):
 def test_launch_counters_stay_zero_on_cpu():
     counters = ops.launch_counters()
     assert set(counters) == {"welch_psd", "ct_frame_psd", "welch_mean",
-                             "tol_levels", "frame_psd", "detect_events"}
+                             "tol_levels", "frame_psd", "detect_events",
+                             "impulsive_metrics"}
     before = {k: c.count for k, c in counters.items()}
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.standard_normal((2, P.record_size)),
@@ -172,6 +173,6 @@ def test_launch_counters_stay_zero_on_cpu():
     ops.detect_events(spl, torch.argmax(fp, dim=-1).to(torch.int32), P)
     from repro_torch import api
     api.job(M, P).device("cpu").run()
-    (api.job(M, P).features("percentiles", "spd").events(-200.0)
-     .device("cpu").run())
+    (api.job(M, P).features("percentiles", "spd")
+     .events(-200.0, impulsive=True).device("cpu").run())
     assert {k: c.count for k, c in counters.items()} == before

@@ -1,7 +1,10 @@
 """The port's roofline modules: ``distributed.roofline`` (H100 terms,
 ``model_flops``) against the reference's, and ``kernels.roofline`` (the
-cost model of the six CUDA kernels) against PERF.md's kernel table and
+cost model of the seven CUDA kernels) against PERF.md's kernel table and
 the tensors of each kernel's call."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -71,14 +74,27 @@ def test_roofline_terms_spread_over_devices():
 
 
 # PERF.md section 6's bounds (ms, three digits) at chip_smoke.py phase 2's
-# shapes: 8 records of a paper set a step
+# shapes: 8 records of a paper set a step; K7 over the int16 step of the
+# set-2 detection cell with chip_smoke.k7_event_mix's events
 BOUNDS_MS = {"K1": 0.0188, "K2": 0.00470, "K3": 0.00159, "K4": 0.000101,
-             "K5": 0.0377, "K6": 0.000294}
+             "K5": 0.0377, "K6": 0.000294, "K7": 0.0000428}
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def phase2_costs():
     p1, p2 = PARAM_SET_1, PARAM_SET_2
+    counts7, rows7 = _chip_smoke().k7_event_mix(0, 8, p2)
+    span7 = kroofline.event_span_samples(counts7, rows7, p2, p2.record_size)
     return {
+        "K7": kroofline.impulsive_metrics_cost(span7, 8, p2.event_capacity,
+                                               int16=True),
         "K1": kroofline.welch_psd_cost(8, p1.record_size, p1),
         "K2": kroofline.ct_cost(8 * p2.frames_per_record, p2),
         "K3": kroofline.welch_mean_cost(8, p2.frames_per_record, p2.n_bins),
