@@ -107,46 +107,37 @@ class ExecOptions:
 
 def compile_step(specs: tuple[FeatureSpec, ...], m: DatasetManifest,
                  p: DepamParams, use_kernels: bool, device_synth: bool,
-                 payload_dtype: str, device: torch.device) -> Callable:
+                 device: torch.device) -> Callable:
     """Build the per-chunk step for all selected features.
 
-    The step takes ``(payload, mask)`` — or ``(payload, mask, scales)``
-    on the int16 path — where payload is host int indices (device
-    synthesis) or a device tensor of float32 waveforms or raw int16 PCM,
-    all with ``(n_shards, chunk)`` leading layout.  It returns
-    ``{feature: (n_shards, chunk, *shape)}`` with padding slots set to
-    each spec's fill value.  The setup constants move to ``device`` once,
-    here.
+    The step takes ``payload`` — or ``(payload, scales)`` on the int16
+    path — where payload is host int indices (device synthesis) or a
+    device tensor of float32 waveforms or raw int16 PCM, all with
+    ``(n_shards, chunk)`` leading layout; it dispatches on the payload's
+    dtype.  It returns ``{feature: (n_shards, chunk, *shape)}``
+    (ragged: ``{"counts", "rows"}``) over every slot, padding included:
+    the reductions mask padding themselves, and the host drops padding
+    rows before any sink sees them.  The setup constants move to
+    ``device`` once, here.
     """
     consts = {s.name: {k: torch.as_tensor(np.asarray(v), device=device)
                        for k, v in s.setup(m, p).items()}
               for s in specs if s.setup is not None}
 
-    def features_out(ctx, lead, mask):
+    def features_out(ctx, lead):
         out = {}
         for s in specs:
             if s.ragged:
-                # padding records' counts are zeroed, so the host-side
-                # compaction drops their rows entirely
                 counts, rows = s.compute(ctx)
-                counts = torch.where(mask.reshape(-1), counts, 0)
                 out[s.name] = {
                     "counts": counts.reshape(lead),
                     "rows": rows.reshape(lead + tuple(rows.shape[1:]))}
-                continue
-            val = s.compute(ctx)
-            val = val.reshape(lead + tuple(val.shape[1:]))
-            if s.shape is None:
-                # reduction-only: the reductions mask padding slots
-                out[s.name] = val
-                continue
-            fmask = mask.reshape(lead + (1,) * (val.ndim - len(lead)))
-            # a Python scalar, not a tensor built per step: that would be
-            # a blocking host->device copy
-            out[s.name] = torch.where(fmask, val, float(s.fill))
+            else:
+                val = s.compute(ctx)
+                out[s.name] = val.reshape(lead + tuple(val.shape[1:]))
         return out
 
-    def shard_step(payload, mask, scales):
+    def shard_step(payload, scales):
         if device_synth:
             idx = np.asarray(payload)
             records = torch.stack([synth_record(int(i), m, device)
@@ -158,17 +149,17 @@ def compile_step(specs: tuple[FeatureSpec, ...], m: DatasetManifest,
         ctx = FeatureContext(
             records.reshape(-1, records.shape[-1]), p, use_kernels, consts,
             scales=None if scales is None else scales.reshape(-1))
-        return features_out(ctx, lead, mask)
+        return features_out(ctx, lead)
 
-    def step(payload, mask, scales=None):
+    def step(payload, scales=None):
         # one call per logical shard row: no op ever sees a row count
         # that depends on how many executors share the step, so every
         # executor count dividing n_shards gives the same bits
-        n = mask.shape[0]
+        n = payload.shape[0]
         if n == 1:
-            return shard_step(payload, mask, scales)
+            return shard_step(payload, scales)
         return _cat_outputs([
-            shard_step(payload[s:s + 1], mask[s:s + 1],
+            shard_step(payload[s:s + 1],
                        None if scales is None else scales[s:s + 1])
             for s in range(n)], device)
 
@@ -440,10 +431,8 @@ class Compiler:
     """Where a stepper gets its step and carry-update functions from —
     the seam a serving layer's shared cache plugs into."""
 
-    def step(self, specs, m, p, use_kernels, device_synth, payload_dtype,
-             device) -> Callable:
-        return compile_step(specs, m, p, use_kernels, device_synth,
-                            payload_dtype, device)
+    def step(self, specs, m, p, use_kernels, device_synth, device) -> Callable:
+        return compile_step(specs, m, p, use_kernels, device_synth, device)
 
     def reduce(self, bindings) -> Callable:
         return compile_reduce_update(bindings)
@@ -753,7 +742,7 @@ class JobStepper:
             if dev not in step_fns:
                 step_fns[dev] = self.compiler.step(
                     self.specs, m, p, self.use_kernels,
-                    source.device_synth, source.payload_dtype, dev)
+                    source.device_synth, dev)
         self._step_fns = [step_fns[dev] for dev in self.executors]
         self._agg_fn = self.compiler.reduce(bindings)
 
@@ -931,8 +920,8 @@ class JobStepper:
         payload, scales, mask = self._fetch(idx, mask)
         n_dev = len(self.executors)
         blocks = {k: partition_lib.split_rows(v, n_dev) for k, v in
-                  (("mask", mask), ("payload", payload), ("scales", scales),
-                   ("idx", idx)) if v is not None}
+                  (("payload", payload), ("scales", scales), ("idx", idx))
+                  if v is not None}
         idx_blocks = blocks.pop("idx")
         t0 = clock()
         trace.begin("job.h2d", t0, step=step)
@@ -941,9 +930,8 @@ class JobStepper:
             arrays = {k: b[e] for k, b in blocks.items()}
             if e == 0:
                 # what the carry update on the first executor reads
+                arrays["mask"] = mask
                 arrays["rows"] = rows
-                if n_dev > 1:
-                    arrays["all_mask"] = mask
             devs.append(h2d.ship(arrays))
         t1 = clock()
         trace.end(t1)
@@ -951,19 +939,17 @@ class JobStepper:
         outs = []
         for fn, dev, idx_e in zip(self._step_fns, devs, idx_blocks):
             if self.source.device_synth:
-                outs.append(fn(idx_e, dev["mask"]))
+                outs.append(fn(idx_e))
             else:
-                outs.append(fn(dev["payload"], dev["mask"],
-                               dev.get("scales")))
+                outs.append(fn(dev["payload"], dev.get("scales")))
         out = outs[0] if n_dev == 1 else _cat_outputs(outs, self.device)
-        cmask = devs[0]["all_mask" if n_dev > 1 else "mask"]
         fetch = {("feature", name): out[name] for name in self._shapes}
         for name in self._ragged:
             fetch[("counts", name)] = out[name]["counts"]
             fetch[("rows", name)] = out[name]["rows"]
         pending = self._d2h.start(fetch)
         self._live += int(mask.sum())
-        carry = self._update_carry(step, out, cmask, segments,
+        carry = self._update_carry(step, out, devs[0]["mask"], segments,
                                    devs[0]["rows"])
         keep_alive = None if self.options.donate \
             else [d.get("payload") for d in devs]

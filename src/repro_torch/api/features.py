@@ -9,8 +9,10 @@ A :class:`FeatureSpec` declares
   * ``compute(ctx)`` — a function from the shared
     :class:`FeatureContext` (records + cached Welch / frame-PSD
     intermediates) to a ``(batch, *shape)`` tensor;
-  * ``fill`` — the value written into padding slots beyond the manifest
-    end (0 for linear power, -inf for dB levels);
+  * ``fill`` — the reference's value for padding slots beyond the
+    manifest end (0 for linear power, -inf for dB levels), kept for its
+    signature: the port never writes padding rows, since the host drops
+    them before any sink sees a step;
   * optional ``setup(manifest, params)`` — host-side constants (e.g. the
     TOL band matrix), moved to the job's device once per job;
   * optional ``reductions`` — :class:`Reduction` instances turning the
@@ -43,31 +45,28 @@ from repro_torch.kernels.common import dequantize
 class FeatureContext:
     """Shared per-step state handed to every ``FeatureSpec.compute``.
 
-    ``records`` is the flat ``(batch, record_size)`` float32 waveform
-    batch on the job's device.  The intermediates (Welch PSD, per-frame
-    PSD, frame SPL and peak bins, detected events) are computed lazily
-    and cached, so N features selecting one compute it exactly once.
-
-    With the int16 payload the context holds the raw ``(batch,
-    record_size)`` PCM plus the per-record decode-scale sidecar
-    (``scales``); the PSD intermediates then hand the PCM straight to
-    the kernels, which dequantize as they load, and ``ctx.records``
-    dequantizes lazily (bitwise-equal to the host decode) only for
-    features that need the waveform itself.
+    ``payload`` is the step's flat ``(batch, record_size)`` batch on the
+    job's device: float32 waveforms, or raw int16 PCM with the
+    per-record decode-scale sidecar ``scales`` (None for float32).  Every
+    op gets that one pair and ``kernel=use_kernels``, and
+    ``kernels.ops`` picks kernel or plain and dequantizes where its
+    route needs it.  The intermediates (Welch PSD, per-frame PSD, frame
+    SPL and peak bins, detected events) are computed lazily and cached,
+    so N features selecting one compute it exactly once.
+    ``ctx.records`` is the float32 waveform, dequantized lazily
+    (bitwise-equal to the host decode) only for features that need the
+    waveform itself.
     """
 
     def __init__(self, records: torch.Tensor, params: DepamParams,
                  use_kernels: bool, consts: dict[str, dict],
                  scales: torch.Tensor | None = None):
-        self.quantized = records.dtype == torch.int16
-        self.pcm = records if self.quantized else None
+        self.payload = records
         self.scales = scales
         self.params = params
         self.use_kernels = use_kernels
         self._consts = consts
         self._cache: dict[str, torch.Tensor] = {}
-        if not self.quantized:
-            self._cache["records"] = records
 
     def const(self, feature: str, name: str) -> torch.Tensor:
         """A host-side constant declared by ``FeatureSpec.setup``."""
@@ -76,34 +75,29 @@ class FeatureContext:
     @property
     def records(self) -> torch.Tensor:
         """(batch, record_size) float32 waveforms (lazy dequantize)."""
+        if self.payload.dtype != torch.int16:
+            return self.payload
         if "records" not in self._cache:
-            self._cache["records"] = dequantize(self.pcm, self.scales)
+            self._cache["records"] = dequantize(self.payload, self.scales)
         return self._cache["records"]
 
-    def _psd(self, key: str, kernel_fn, plain_fn) -> torch.Tensor:
-        """Shared dispatch for the cached PSD intermediates: the kernel
-        entry points take raw PCM + the scales sidecar directly; the
-        plain ``core.spectra`` path (``.kernels(False)``) gets the
-        (lazily dequantized) float32 records."""
+    def _psd(self, key: str, fn) -> torch.Tensor:
+        """A cached PSD intermediate of the step's payload."""
         if key not in self._cache:
-            if self.use_kernels:
-                src = self.pcm if self.quantized else self.records
-                out = kernel_fn(src, self.params, scales=self.scales
-                                if self.quantized else None)
-            else:
-                out = plain_fn(self.records, self.params)
-            self._cache[key] = out
+            self._cache[key] = fn(self.payload, self.params,
+                                  scales=self.scales,
+                                  kernel=self.use_kernels)
         return self._cache[key]
 
     @property
     def welch(self) -> torch.Tensor:
         """(batch, n_bins) Welch PSD."""
-        return self._psd("welch", ops.welch_psd, spectra.welch_psd)
+        return self._psd("welch", ops.welch_psd)
 
     @property
     def frame_psd(self) -> torch.Tensor:
         """(batch, n_frames, n_bins) per-frame PSD (the spectrogram)."""
-        return self._psd("frame_psd", ops.frame_psd, spectra.frame_psd)
+        return self._psd("frame_psd", ops.frame_psd)
 
     @property
     def frame_db(self) -> torch.Tensor:
@@ -421,9 +415,9 @@ register(FeatureSpec(
     name="tol",
     shape=lambda m, p: (make_band_matrix(p).shape[1],),
     setup=lambda m, p: {"band_matrix": make_band_matrix(p)},
-    compute=lambda ctx: (
-        (ops.tol_levels if ctx.use_kernels else spectra.tol_levels)(
-            ctx.welch, ctx.const("tol", "band_matrix"), ctx.params)),
+    compute=lambda ctx: ops.tol_levels(
+        ctx.welch, ctx.const("tol", "band_matrix"), ctx.params,
+        kernel=ctx.use_kernels),
     fill=-float("inf"),
     doc="Third-octave levels per record, dB (IEC 61260 base-10 bands)."))
 
@@ -600,10 +594,8 @@ def _impulsive_compute(ctx: FeatureContext):
     version.  Only capacity rows come home.
     """
     counts, rows = ctx.events
-    x = ctx.pcm if ctx.quantized else ctx.records
     return counts, ops.impulsive_metrics(
-        x, counts, rows, ctx.params,
-        scales=ctx.scales if ctx.quantized else None,
+        ctx.payload, counts, rows, ctx.params, scales=ctx.scales,
         kernel=ctx.use_kernels)
 
 

@@ -14,10 +14,16 @@ rule:
 Every entry point takes float32 or raw int16 PCM (with the per-record
 ``scales`` sidecar): the kernels dequantize as they load, the plain path
 dequantizes first, all bitwise-identical to feeding host-decoded float32.
-On a CUDA tensor the kernels launch; on a CPU tensor each kernel module
-runs its plain PyTorch version.  ``detect_events`` (K6) scans a
-frame-SPL trace for loud events, and ``impulsive_metrics`` (K7) reads
-each event's own samples for its impulsive metrics.
+``detect_events`` (K6) scans a frame-SPL trace for loud events, and
+``impulsive_metrics`` (K7) reads each event's own samples for its
+impulsive metrics.
+
+This module alone picks kernel or plain: every PSD, TOL, event and
+impulsive entry point takes ``kernel`` (the job's ``.kernels(...)``).
+``kernel=False`` runs the plain route on any device — ``core.spectra``
+for the PSDs and TOL, the kernel module's plain version for K6 and K7.
+With ``kernel=True`` a CUDA tensor launches the kernel and a CPU tensor
+takes each kernel module's plain PyTorch version.
 """
 from __future__ import annotations
 
@@ -45,10 +51,12 @@ def _frame_scales(scales, lead: tuple[int, ...], nf: int, device):
 
 
 def frame_psd(x: torch.Tensor, p, backend: str | None = None,
-              scales: torch.Tensor | None = None) -> torch.Tensor:
+              scales: torch.Tensor | None = None, *,
+              kernel: bool = True) -> torch.Tensor:
     """Per-frame PSD. x: (n_samples,) or (n_records, record_size),
-    float32 or raw int16 PCM (+ per-record ``scales`` sidecar)."""
-    backend = backend or psd_backend(p)
+    float32 or raw int16 PCM (+ per-record ``scales`` sidecar);
+    ``kernel=False`` takes the plain ``"xla"`` route."""
+    backend = (backend or psd_backend(p)) if kernel else "xla"
     quantized = x.dtype == torch.int16
     if backend == "direct":
         return framepsd.frame_psd(x, p, scales=scales)
@@ -66,10 +74,12 @@ def frame_psd(x: torch.Tensor, p, backend: str | None = None,
 
 
 def welch_psd(records: torch.Tensor, p, backend: str | None = None,
-              scales: torch.Tensor | None = None) -> torch.Tensor:
+              scales: torch.Tensor | None = None, *,
+              kernel: bool = True) -> torch.Tensor:
     """Per-record Welch PSD. records: (n_records, record_size),
-    float32 or raw int16 PCM (+ per-record ``scales`` sidecar)."""
-    backend = backend or psd_backend(p)
+    float32 or raw int16 PCM (+ per-record ``scales`` sidecar);
+    ``kernel=False`` takes the plain ``"xla"`` route."""
+    backend = (backend or psd_backend(p)) if kernel else "xla"
     if backend == "direct":
         return framepsd.welch_psd(records, p, scales=scales)
     if backend == "ct":
@@ -80,9 +90,12 @@ def welch_psd(records: torch.Tensor, p, backend: str | None = None,
     return spectra.welch_psd(records, p)
 
 
-def tol_levels(psd: torch.Tensor, band_matrix: torch.Tensor,
-               p) -> torch.Tensor:
-    return tol_kernel.tol_levels(psd, band_matrix, p)
+def tol_levels(psd: torch.Tensor, band_matrix: torch.Tensor, p, *,
+               kernel: bool = True) -> torch.Tensor:
+    """Third-octave levels (dB) of a (n_records, n_bins) PSD;
+    ``kernel=False`` runs ``core.spectra.tol_levels``."""
+    fn = tol_kernel.tol_levels if kernel else spectra.tol_levels
+    return fn(psd, band_matrix, p)
 
 
 def detect_events(frame_spl: torch.Tensor, frame_peak_bin: torch.Tensor, p,

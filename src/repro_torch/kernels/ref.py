@@ -1,6 +1,7 @@
-"""Oracles for the DEPAM kernels, over ``core.spectra`` (scipy-welch
-compatible), and a frame-by-frame event detector.  The kernel tests
-hold each kernel's plain version and the kernel itself against these."""
+"""Oracles with arithmetic of their own for the DEPAM kernels: the
+per-frame PSD of pre-extracted frames (K2) and a frame-by-frame event
+detector (K6).  The other kernels' tests hold them against
+``core.spectra`` (scipy-welch compatible) directly."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,14 +9,6 @@ import torch
 
 from repro_torch.core import spectra
 from repro_torch.core.windows import make_window
-
-
-def frame_psd(x: torch.Tensor, p) -> torch.Tensor:
-    return spectra.frame_psd(x, p)
-
-
-def welch_psd(records: torch.Tensor, p) -> torch.Tensor:
-    return spectra.welch_psd(records, p)
 
 
 def ct_frame_psd(frames: torch.Tensor, p) -> torch.Tensor:
@@ -27,15 +20,6 @@ def ct_frame_psd(frames: torch.Tensor, p) -> torch.Tensor:
                          device=frames.device)
     return power * scale * spectra.onesided_weights(p.nfft, frames.dtype,
                                                     frames.device)
-
-
-def welch_mean(frame_psd_: torch.Tensor) -> torch.Tensor:
-    return torch.mean(frame_psd_, dim=1)
-
-
-def tol_levels(psd: torch.Tensor, band_matrix: torch.Tensor,
-               p) -> torch.Tensor:
-    return spectra.tol_levels(psd, band_matrix, p)
 
 
 def detect_events(frame_spl: torch.Tensor, frame_peak_bin: torch.Tensor,

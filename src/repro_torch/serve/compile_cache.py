@@ -9,7 +9,7 @@ keys on every argument of the port's :class:`repro_torch.api.engine.
 Compiler` seam, which is exactly what determines the function:
 
   * the **step** — ``(feature specs, manifest, params, kernel toggle,
-    device-synth flag, payload dtype, device)`` (see
+    device-synth flag, device)`` (see
     :func:`repro_torch.api.engine.compile_step`); specs and manifests
     are frozen dataclasses and ``torch.device`` hashes, so the tuple is
     hashable as-is;
@@ -31,8 +31,11 @@ sinks that persist the carry.  The port has no donation, so a
 store-backed tenant and an in-memory tenant with the same reductions
 share one carry update here where the reference compiles two; for
 tenants that do not differ that way the hit/miss accounting is the
-reference's.  A mesh of D distinct devices asks once per device (the
-reference once per mesh).
+reference's.  The step key holds no payload transport either: the
+step dispatches on the payload tensor's dtype, so a float32 tenant and
+an int16 tenant with the same configuration share one step function,
+where the reference keys on the transport.  A mesh of D distinct
+devices asks once per device (the reference once per mesh).
 
 Both maps live behind one lock (submissions may arrive from any
 thread) and count hits/misses per kind — ``stats()`` is the service's
@@ -75,15 +78,12 @@ class CompileCache(engine.Compiler):
             self._entries[kind].setdefault(key, fn)
             return self._entries[kind][key]
 
-    def step(self, specs, m, p, use_kernels, device_synth, payload_dtype,
-             device) -> Callable:
-        key = (specs, m, p, use_kernels, device_synth, payload_dtype,
-               device)
+    def step(self, specs, m, p, use_kernels, device_synth, device) -> Callable:
+        key = (specs, m, p, use_kernels, device_synth, device)
         return self._get(
             "step", key,
             lambda: engine.compile_step(specs, m, p, use_kernels,
-                                        device_synth, payload_dtype,
-                                        device))
+                                        device_synth, device))
 
     def reduce(self, bindings) -> Callable:
         return self._get("reduce", (bindings,),

@@ -1,6 +1,8 @@
 """The port's job (main path) against the reference job, and its own
 bitwise invariants: int16 == float32, resumed == uninterrupted, and a
 store the reference committed mid-job resumes in the port."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from repro_torch.core import pipeline
 from repro_torch.core.manifest import DatasetManifest
 from repro_torch.core.params import DepamParams, PCM_DECODE_SCALE
 from repro_torch.api.sources import synth_record
+from repro_torch.kernels import ops
 
 FEATS = ("welch", "spl", "tol", "ltsa", "minmax")
 LINEAR = ("welch", "mean_welch", "ltsa", "min_welch", "max_welch")
@@ -23,6 +26,8 @@ SHAPES = {   # name: (params, linear rel tol, dB abs tol)
     "ct": (dict(nfft=1024, window_size=1024, window_overlap=0,
                 record_size_sec=4096 / 32768), 1e-3, 5e-3),
 }
+OPS = ("welch_psd", "frame_psd", "tol_levels", "detect_events",
+       "impulsive_metrics")
 MKW = dict(n_files=3, records_per_file=4, seed=7)
 WINDOW = 5          # windows [0,5) [5,10) [10,12): none is empty
 SEED = 31
@@ -175,14 +180,38 @@ def test_run_pipeline():
     assert got["n_records"] == m.n_records
 
 
-def test_kernel_and_plain_paths_agree():
+def test_kernel_and_plain_paths_agree(monkeypatch):
+    """``.kernels(False)`` reaches every PSD, TOL, event and impulsive
+    call through ``kernels.ops`` with ``kernel=False`` (``ops`` alone
+    picks kernel or plain), and agrees with the kernel path."""
     p, _ = _params("ct")
+    p = dataclasses.replace(p, event_threshold_db=0.0)   # events exist
     m, _ = _manifests(p)
     f32, _i16, _sc = _readers(p, m.n_records)
-    a = api.job(m, p).chunk(4).source(f32).device("cpu").run()
-    b = (api.job(m, p).chunk(4).source(f32).device("cpu").kernels(False)
-         .run())
+    calls = {}
+    for name in OPS:
+        def counted(*a, _name=name, _orig=getattr(ops, name), **kw):
+            calls.setdefault(_name, []).append(kw.get("kernel", True))
+            return _orig(*a, **kw)
+        monkeypatch.setattr(ops, name, counted)
+
+    def job():
+        return (api.job(m, p).chunk(4).source(f32).device("cpu")
+                .features("welch", "spl", "tol", "percentiles", "events",
+                          "impulsive"))
+    a = job().run()
+    assert sorted(calls) == sorted(OPS)
+    assert all(all(k) for k in calls.values()), calls
+    calls.clear()
+    b = job().kernels(False).run()
+    assert sorted(calls) == sorted(OPS)
+    assert not any(any(k) for k in calls.values()), calls
     _close(a, b, 1e-3, 5e-3)
+    for name in ("events", "impulsive"):
+        ea, eb = a.events[name], b.events[name]
+        assert ea.counts.sum() > 0, name
+        assert np.array_equal(ea.counts, eb.counts), name
+        assert np.max(np.abs(ea.rows - eb.rows)) < 5e-3, name
 
 
 def test_synth_source_deterministic_per_record():

@@ -22,6 +22,7 @@ from repro.core import tol as jtol
 from repro.core.params import DepamParams as JParams
 from repro.kernels import ct_rfft as jct, framepsd as jfp, ops as jops
 from repro.kernels import ref as jref, tol as jtolk, welch as jwelch
+from repro_torch.core import spectra
 from repro_torch.core.params import DepamParams, PCM_DECODE_SCALE
 from repro_torch.core.tol import band_matrix
 from repro_torch.kernels import (common, ct_rfft, events, fftplan, framepsd,
@@ -146,7 +147,7 @@ class TestFramePsd:
         want = jfp.frame_psd(jnp.asarray(x), jp, interpret=True)
         assert got.shape == tuple(want.shape)
         assert _maxrel(got, want, 1e-9) < 5e-4
-        assert _maxrel(got, ref.frame_psd(torch.as_tensor(x), p),
+        assert _maxrel(got, spectra.frame_psd(torch.as_tensor(x), p),
                        1e-9) < 5e-4
         q = _pcm(rng, shape)
         sc = (PCM_DECODE_SCALE * np.linspace(0.5, 2, 3)).astype(np.float32)
@@ -274,15 +275,22 @@ class TestWelchMeanAndTol:
         want = jwelch.welch_mean(jnp.asarray(fp), block_records=2,
                                  chunk_frames=8, interpret=True)
         assert _maxrel(got, want, 1e-9) < 1e-5
-        assert _maxrel(got, ref.welch_mean(torch.as_tensor(fp)), 1e-9) < 1e-5
+        assert _maxrel(got, torch.mean(torch.as_tensor(fp), dim=1),
+                       1e-9) < 1e-5
 
     @pytest.mark.parametrize("args", [(256, 256, 128), (4096, 4096, 0)])
-    def test_tol_kernel(self, args):
+    @pytest.mark.parametrize("kernel", [True, False])
+    def test_tol_kernel(self, args, kernel):
+        """ops.tol_levels: K4's plain version, or with kernel=False
+        core.spectra's, against the Pallas kernel."""
         p, jp = _p(*args)
         m = band_matrix(p)
         psd = (np.random.default_rng(19).random((7, p.n_bins))
                + 1e-6).astype(np.float32)
-        got = tolk.tol_levels(torch.as_tensor(psd), torch.as_tensor(m), p)
+        psd_t, m_t = torch.as_tensor(psd), torch.as_tensor(m)
+        got = ops.tol_levels(psd_t, m_t, p, kernel=kernel)
+        assert torch.equal(got, (tolk.tol_levels if kernel
+                                 else spectra.tol_levels)(psd_t, m_t, p))
         want = jtolk.tol_levels(jnp.asarray(psd), jnp.asarray(
             jtol.band_matrix(jp)), jp, block_records=4, interpret=True)
         assert float(np.max(np.abs(got.numpy() - np.asarray(want)))) < 1e-4
@@ -295,19 +303,24 @@ class TestOps:
         ((768, 384, 100), 1e-4),      # plain spectra path
     ])
     @pytest.mark.parametrize("payload", ["float32", "int16"])
-    def test_welch_psd_every_backend(self, args, tol, payload):
+    @pytest.mark.parametrize("kernel", [True, False])
+    def test_welch_psd_every_backend(self, args, tol, payload, kernel):
+        """Every route against the reference's dispatch; kernel=False is
+        core.spectra on the host-decoded records, bit for bit."""
         p, jp = _p(*args, n_frames=6)
         rng = np.random.default_rng(23)
         q = _pcm(rng, (3, p.record_size))
         sc = (PCM_DECODE_SCALE * np.array([1, 2, 3])).astype(np.float32)
+        x = q.astype(np.float32) * sc[:, None]
         if payload == "int16":
             got = ops.welch_psd(torch.as_tensor(q), p,
-                                scales=torch.as_tensor(sc))
+                                scales=torch.as_tensor(sc), kernel=kernel)
             want = jops.welch_psd(jnp.asarray(q), jp, scales=jnp.asarray(sc))
         else:
-            x = q.astype(np.float32) * sc[:, None]
-            got = ops.welch_psd(torch.as_tensor(x), p)
+            got = ops.welch_psd(torch.as_tensor(x), p, kernel=kernel)
             want = jops.welch_psd(jnp.asarray(x), jp)
+        if not kernel:
+            assert torch.equal(got, spectra.welch_psd(torch.as_tensor(x), p))
         assert _maxrel(got, want, 1e-9) < tol
 
     @pytest.mark.parametrize("payload", ["float32", "int16"])
@@ -336,12 +349,17 @@ class TestOps:
             assert got.shape == tuple(want.shape)
             assert _maxrel(got, want, 1e-9) < 5e-4
 
-    def test_frame_psd_ct_and_plain(self):
+    @pytest.mark.parametrize("kernel", [True, False])
+    def test_frame_psd_ct_and_plain(self, kernel):
+        """kernel=False is core.spectra, bit for bit, on every route."""
         for args in ((1024, 1024, 0), (768, 384, 100)):
             p, jp = _p(*args, n_frames=4)
             x = np.random.default_rng(2).standard_normal(
                 (2, p.record_size)).astype(np.float32)
-            got = ops.frame_psd(torch.as_tensor(x), p)
+            got = ops.frame_psd(torch.as_tensor(x), p, kernel=kernel)
+            if not kernel:
+                assert torch.equal(got, spectra.frame_psd(
+                    torch.as_tensor(x), p))
             want = jops.frame_psd(jnp.asarray(x), jp)
             assert got.shape == tuple(want.shape)
             assert _maxrel(got, want, 1e-6) < 1e-3

@@ -211,18 +211,21 @@ class TestServiceBitwise:
                 svc.trace
 
     def test_compile_cache_accounting(self, dataset):
-        """Same-config tenants share one step function (>= 1 hit); a
-        different payload transport builds its own."""
+        """Same-config tenants share one step function (>= 1 hit); the
+        wav tenants build their own, since they differ from the synth
+        tenants by device synthesis.  The step key holds no payload
+        transport, so the float32 and int16 wav tenants share one."""
         svc = SoundscapeService()
         for n in ("a", "b"):
             synth_job().submit(svc, name=n)
         wav_job(dataset, payload="int16").submit(svc, name="c")
+        wav_job(dataset).submit(svc, name="d")
         svc.run(timeout=600)
         cs = svc.stats()["compile"]
-        assert cs["step"]["hits"] >= 1
-        assert cs["step"]["entries"] == 2      # synth vs int16 wav
+        assert cs["step"]["hits"] >= 2
+        assert cs["step"]["entries"] == 2      # synth vs wav
         assert cs["reduce"]["hits"] >= 1
-        assert cs["step"]["hits"] + cs["step"]["misses"] >= 3
+        assert cs["step"]["hits"] + cs["step"]["misses"] >= 4
 
     def test_failed_tenant_is_isolated(self):
         class Boom(Source):
