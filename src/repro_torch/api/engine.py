@@ -27,9 +27,10 @@ float32 one.
 The pipelined executor (:class:`ExecOptions`) changes only *when* the
 host waits, never what the device computes:
 
-  * host→device: each step's payload, mask, decode scales and window
-    row indices are staged in pinned host buffers and copied with
-    ``non_blocking`` on a dedicated copy stream; the compute stream
+  * host→device: each step's payload, decode scales and the carry's
+    index (window row indices, hit window ids, live mask) are staged in
+    pinned host buffers and copied with ``non_blocking`` on a dedicated
+    copy stream; the compute stream
     (the current stream, on which every kernel launches) waits on that
     copy's CUDA event, so nothing in a step synchronizes the host;
   * device→host: at dispatch, the stored features, the ragged slabs
@@ -74,6 +75,7 @@ from repro_torch.core.params import DepamParams
 from repro_torch.distributed import partition as partition_lib
 from .features import (EPOCH_WINDOW, FeatureContext, FeatureSpec,
                        Reduction, StateField, Window)
+from .graphs import StepGraphs
 from .sinks import Sink
 from .sources import Source, synth_record
 
@@ -114,17 +116,22 @@ def compile_step(specs: tuple[FeatureSpec, ...], m: DatasetManifest,
     path — where payload is host int indices (device synthesis) or a
     device tensor of float32 waveforms or raw int16 PCM, all with
     ``(n_shards, chunk)`` leading layout; it dispatches on the payload's
-    dtype.  It returns ``{feature: (n_shards, chunk, *shape)}``
-    (ragged: ``{"counts", "rows"}``) over every slot, padding included:
-    the reductions mask padding themselves, and the host drops padding
-    rows before any sink sees them.  The setup constants move to
-    ``device`` once, here.
+    dtype.  ``graphs`` is the calling job's
+    :class:`~repro_torch.api.graphs.StepGraphs` for this device (None:
+    every chain eager).  It returns ``{feature: (n_shards, chunk,
+    *shape)}`` (ragged: ``{"counts", "rows"}``) over every slot, padding
+    included: the reductions mask padding themselves, and the host drops
+    padding rows before any sink sees them.  A value that is a graph's
+    static output is cloned where it must outlive the graph's next
+    replay: a stored feature (the host copies it back later), or any
+    value of a step of several shard rows.  The setup constants move to
+    ``device`` once, here; the step keeps no per-job state.
     """
     consts = {s.name: {k: torch.as_tensor(np.asarray(v), device=device)
                        for k, v in s.setup(m, p).items()}
               for s in specs if s.setup is not None}
 
-    def features_out(ctx, lead):
+    def features_out(ctx, lead, several):
         out = {}
         for s in specs:
             if s.ragged:
@@ -134,10 +141,13 @@ def compile_step(specs: tuple[FeatureSpec, ...], m: DatasetManifest,
                     "rows": rows.reshape(lead + tuple(rows.shape[1:]))}
             else:
                 val = s.compute(ctx)
+                if (several or s.shape is not None) \
+                        and ctx.graphs.owns(val):
+                    val = val.clone()
                 out[s.name] = val.reshape(lead + tuple(val.shape[1:]))
         return out
 
-    def shard_step(payload, scales):
+    def shard_step(payload, scales, graphs, several):
         if device_synth:
             idx = np.asarray(payload)
             records = torch.stack([synth_record(int(i), m, device)
@@ -148,19 +158,21 @@ def compile_step(specs: tuple[FeatureSpec, ...], m: DatasetManifest,
         lead = tuple(records.shape[:-1])
         ctx = FeatureContext(
             records.reshape(-1, records.shape[-1]), p, use_kernels, consts,
-            scales=None if scales is None else scales.reshape(-1))
-        return features_out(ctx, lead)
+            scales=None if scales is None else scales.reshape(-1),
+            graphs=graphs)
+        return features_out(ctx, lead, several)
 
-    def step(payload, scales=None):
+    def step(payload, scales=None, graphs=None):
         # one call per logical shard row: no op ever sees a row count
         # that depends on how many executors share the step, so every
         # executor count dividing n_shards gives the same bits
         n = payload.shape[0]
         if n == 1:
-            return shard_step(payload, scales)
+            return shard_step(payload, scales, graphs, False)
         return _cat_outputs([
             shard_step(payload[s:s + 1],
-                       None if scales is None else scales[s:s + 1])
+                       None if scales is None else scales[s:s + 1],
+                       graphs, True)
             for s in range(n)], device)
 
     return step
@@ -255,9 +267,11 @@ def _window_rows(wids: dict[str, np.ndarray]
     ``wids`` maps each window key to the step's ``(n_shards, chunk)``
     window ids.  Returns ``segments[key]``, per logical shard the window
     ids the step hits (ascending) each with the ``[lo, hi)`` range of its
-    row indices, and those row indices (into the shard's own rows) as
-    ONE flat int64 array, which ships to the device with the step's
-    other host arrays."""
+    row indices, and one flat int64 array: those row indices (into the
+    shard's own rows), then for each key in turn the ids of the windows
+    the step hits, ascending (:func:`_hit_offsets`).  With the step's
+    live mask appended (:func:`_carry_index`) it ships to the device
+    with the step's other host arrays."""
     segments, parts, n = {}, [], 0
     for key, w in wids.items():
         per_shard = []
@@ -270,6 +284,8 @@ def _window_rows(wids: dict[str, np.ndarray]
                 n += r.size
             per_shard.append(runs)
         segments[key] = per_shard
+    parts += [np.asarray([w for w, _ in _window_hits(runs)])
+              for runs in segments.values()]
     rows = np.concatenate(parts) if parts else np.zeros(0)
     return segments, rows.astype(np.int64)
 
@@ -287,6 +303,27 @@ def _window_hits(shard_runs) -> list[tuple[int, list]]:
         for w, lo, hi in runs:
             hits.setdefault(w, []).append((s, lo, hi))
     return sorted(hits.items())
+
+
+def _carry_index(rows: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """What the carry update reads of the host's step: the row indices
+    and hit window ids of :func:`_window_rows`, then the ``(n_shards,
+    chunk)`` live mask as 0/1, in one int64 array (one copy to the
+    device)."""
+    return np.concatenate([rows, np.asarray(mask, np.int64).reshape(-1)])
+
+
+def _hit_offsets(segments) -> tuple[dict[str, int], int, int]:
+    """Where each key's hit window ids start in :func:`_carry_index`'s
+    array (after every row index, keys in order), where the live mask
+    starts, and its length (the step's rows)."""
+    rows = n = sum(hi - lo for runs in segments.values() for shard in runs
+                   for _, lo, hi in shard)
+    out = {}
+    for key, runs in segments.items():
+        out[key] = n
+        n += len({w for shard in runs for w, _, _ in shard})
+    return out, n, rows // len(segments)
 
 
 def _window_partial(merge: str, contribs: torch.Tensor, ranges,
@@ -308,53 +345,104 @@ def _window_partial(merge: str, contribs: torch.Tensor, ranges,
     return part
 
 
+def _merge_rows(merge: str, row, comp, part):
+    """``row ⊕= part`` in place (``comp``: the Kahan companion of a
+    ``ksum`` row), on views or on gathered copies alike."""
+    if merge == "ksum":
+        y = part - comp
+        t = row + y
+        # zero partials are exact no-ops: without the where, the
+        # float32 (s, c) rotation would keep perturbing the row,
+        # breaking the byte identity between rows flushed mid-job and
+        # the job-end recompute
+        zero = part == 0
+        torch.where(zero, comp, (t - row) - y, out=comp)
+        torch.where(zero, row, t, out=row)
+    elif merge == "sum":
+        row.add_(part)
+    else:
+        _COMBINE[merge](row, part, out=row)
+
+
 def compile_reduce_update(bindings: tuple[ReductionBinding, ...]
                           ) -> Callable:
     """Multi-window carry update, in place: state ⊕= step contributions.
 
-    Takes ``(state, outputs, mask, segments, rows)``: ``state`` maps
+    Takes ``(state, outputs, segments, index, graphs)``: ``state`` maps
     ``__r:<window>:<out>:<field>`` to an ``(n_windows, *shape)`` device
-    tensor (plus ``:c`` Kahan companions), ``mask`` is the step's
-    ``(n_shards, chunk)`` live mask on the device, and
-    ``segments``/``rows`` are :func:`_window_rows` of the step's window
-    ids, the row indices on the device.  Only the rows of
-    the windows the step hits are written, each in place; the state
-    mapping itself is returned.  A window no record of the step hits
-    would merge the identity, which leaves its row as it is, so the
+    tensor (plus ``:c`` Kahan companions), ``segments`` is
+    :func:`_window_rows` of the step's window ids, ``index`` its
+    :func:`_carry_index` (row indices, hit window ids, live mask) on the
+    device, and ``graphs`` the job's
+    :class:`~repro_torch.api.graphs.StepGraphs` (None: eager).  Only the
+    rows of the windows the step hits are written, each in place; the
+    state mapping itself is returned.  A window no record of the step
+    hits would merge the identity, which leaves its row as it is, so the
     rows come out with the bits of a full-size ``state ⊕ partial``.
-    """
 
-    def update(state, out, mask, segments, rows):
-        fmask = mask.reshape(-1)
-        for b in bindings:
-            val = out[b.feature]
-            val = val.reshape((-1,) + tuple(val.shape[2:]))
-            contribs = b.red.update(val, fmask)
-            shard_runs = segments[b.wkey]
-            hits = _window_hits(shard_runs)
-            for f in b.fields:
-                c = contribs[f.name]
-                c = c.reshape((len(shard_runs), -1) + tuple(c.shape[1:]))
-                key = _sk(b, f.name)
-                for w, ranges in hits:
-                    part = _window_partial(f.merge, c, ranges, rows)
-                    row = state[key][w]
-                    if f.merge == "ksum":
-                        comp = state[key + ":c"][w]
-                        y = part - comp
-                        t = row + y
-                        # zero partials are exact no-ops: without the
-                        # where, the float32 (s, c) rotation would keep
-                        # perturbing the row, breaking the byte identity
-                        # between rows flushed mid-job and the job-end
-                        # recompute
-                        zero = part == 0
-                        torch.where(zero, comp, (t - row) - y, out=comp)
-                        torch.where(zero, row, t, out=row)
-                    elif f.merge == "sum":
-                        row.add_(part)
-                    else:
-                        _COMBINE[f.merge](row, part, out=row)
+    The update is one chain of ``graphs``, keyed on the segment layout
+    without the window ids: each hit window's rows are gathered by the
+    ids in ``index`` (``index_select``), merged with the same ops in the
+    same order as one row at a time, and scattered back
+    (``index_copy_``; ``index_add_`` for a ``sum``, whose one add per
+    element has the bits of ``add_``), so a captured graph serves every
+    step of that layout.  A key of one window (the epoch) merges into
+    the view of its only row.
+    """
+    features = tuple(dict.fromkeys(b.feature for b in bindings))
+
+    def update(state, out, segments, index, graphs=None):
+        if not bindings:
+            return state
+        graphs = graphs or StepGraphs()
+        offsets, m0, n_rows = _hit_offsets(segments)
+        layout = {key: tuple(tuple(r) for _, r in _window_hits(runs))
+                  for key, runs in segments.items()}
+        n_shards = len(next(iter(segments.values())))
+
+        def chain(*inputs):
+            vals = dict(zip(features, inputs))
+            rows_ = inputs[-1]
+            fmask = rows_[m0:m0 + n_rows] != 0
+            for b in bindings:
+                val = vals[b.feature]
+                val = val.reshape((-1,) + tuple(val.shape[2:]))
+                contribs = b.red.update(val, fmask)
+                hits = layout[b.wkey]
+                off = offsets[b.wkey]
+                wid = rows_[off:off + len(hits)]
+                for f in b.fields:
+                    c = contribs[f.name]
+                    c = c.reshape((n_shards, -1) + tuple(c.shape[1:]))
+                    key = _sk(b, f.name)
+                    parts = [_window_partial(f.merge, c, ranges, rows_)
+                             for ranges in hits]
+                    dst = state[key]
+                    cdst = state.get(key + ":c")
+                    if b.n_windows == 1:
+                        _merge_rows(f.merge, dst[0],
+                                    None if cdst is None else cdst[0],
+                                    parts[0])
+                        continue
+                    part = parts[0][None] if len(parts) == 1 \
+                        else torch.stack(parts)
+                    if f.merge == "sum":
+                        dst.index_add_(0, wid, part)
+                        continue
+                    row = dst.index_select(0, wid)
+                    comp = None if cdst is None else cdst.index_select(0, wid)
+                    _merge_rows(f.merge, row, comp, part)
+                    dst.index_copy_(0, wid, row)
+                    if comp is not None:
+                        cdst.index_copy_(0, wid, comp)
+            return ()
+
+        structure = (tuple(sorted(layout.items())),
+                     tuple(sorted(offsets.items())),
+                     tuple(t.data_ptr() for t in state.values()))
+        graphs.run("carry", chain,
+                   tuple(out[f] for f in features) + (index,),
+                   structure)
         return state
 
     return update
@@ -645,11 +733,14 @@ class JobStepper:
     ``h2d.stage`` are the copies into pinned memory; a source with
     ``fetch_into`` on one CUDA executor fills the payload's pinned
     buffer during its fetch, and ``ship`` does not copy it again),
-    ``job.dispatch`` (= ``dispatch``; its child ``job.carry`` is the
-    carry update and the start of the carry's copy to the host, with
-    the window rows it writes, ``windows``, and the carry bytes it
-    sends, ``d2h_bytes``) and, where the step drains, ``job.drain`` (=
-    ``d2h_wait`` + ``sink``; its ``step`` is the step drained), whose
+    ``job.dispatch`` (= ``dispatch``; its attributes ``replays``,
+    ``captures`` and ``eager`` count the step's chain runs by how
+    :class:`~repro_torch.api.graphs.StepGraphs` served them; its child
+    ``job.carry`` is the carry update and the start of the carry's copy
+    to the host, with the window rows it writes, ``windows``, and the
+    carry bytes it sends, ``d2h_bytes``) and, where the step drains,
+    ``job.drain`` (= ``d2h_wait`` + ``sink``; its ``step`` is the step
+    drained), whose
     children are ``drain.compact`` (the event compaction: ``records``,
     ``events`` kept, ``overflow``: records whose true count exceeds the
     capacity) and ``job.flush`` (the closed windows written: ``windows``,
@@ -704,6 +795,7 @@ class JobStepper:
         self._windows_out: dict[str, np.ndarray] = {}
         self._overflowed = False     # event-capacity warning fired once
         self._carry_read = None      # event of the last whole-carry copy
+        self._graphs: list[StepGraphs] = []
 
     def start(self) -> "JobStepper":
         """Bind, build, open the sink, restore committed state.  A
@@ -745,6 +837,10 @@ class JobStepper:
                     source.device_synth, dev)
         self._step_fns = [step_fns[dev] for dev in self.executors]
         self._agg_fn = self.compiler.reduce(bindings)
+        # the chains' graphs are the job's own, one set per executor (the
+        # carry's with the first): the step and carry functions may be
+        # shared between jobs and keep no per-job state
+        self._graphs = [StepGraphs(dev) for dev in self.executors]
 
         self.sink.set_instrument(self.instrument)
         self.sink.open(m, p, self._shapes, pl_)
@@ -930,18 +1026,19 @@ class JobStepper:
             arrays = {k: b[e] for k, b in blocks.items()}
             if e == 0:
                 # what the carry update on the first executor reads
-                arrays["mask"] = mask
-                arrays["rows"] = rows
+                arrays["index"] = _carry_index(rows, mask)
             devs.append(h2d.ship(arrays))
         t1 = clock()
         trace.end(t1)
         trace.begin("job.dispatch", t1, step=step)
+        runs0 = self._chain_runs()
         outs = []
-        for fn, dev, idx_e in zip(self._step_fns, devs, idx_blocks):
+        for fn, dev, idx_e, g in zip(self._step_fns, devs, idx_blocks,
+                                     self._graphs):
             if self.source.device_synth:
-                outs.append(fn(idx_e))
+                outs.append(fn(idx_e, None, g))
             else:
-                outs.append(fn(dev["payload"], dev.get("scales")))
+                outs.append(fn(dev["payload"], dev.get("scales"), g))
         out = outs[0] if n_dev == 1 else _cat_outputs(outs, self.device)
         fetch = {("feature", name): out[name] for name in self._shapes}
         for name in self._ragged:
@@ -949,21 +1046,29 @@ class JobStepper:
             fetch[("rows", name)] = out[name]["rows"]
         pending = self._d2h.start(fetch)
         self._live += int(mask.sum())
-        carry = self._update_carry(step, out, devs[0]["mask"], segments,
-                                   devs[0]["rows"])
+        carry = self._update_carry(step, out, segments, devs[0]["index"])
         keep_alive = None if self.options.donate \
             else [d.get("payload") for d in devs]
         self._inflight.append((step, idx, mask, pending, carry,
                                keep_alive))
         self._step += 1
+        for g in self._graphs:
+            g.first_step = False
+        runs = self._chain_runs()
         t2 = clock()
-        trace.end(t2)
+        trace.end(t2, **{k: runs[k] - runs0[k] for k in runs})
         self.host_seconds["h2d"] += (t1 - t0) / 1e9
         self.host_seconds["dispatch"] += (t2 - t1) / 1e9
         while len(self._inflight) > self.options.inflight:
             self._drain()
 
-    def _update_carry(self, step, out, cmask, segments, rows):
+    def _chain_runs(self) -> dict:
+        """The job's chain runs so far (``StepGraphs.counts``, summed
+        over the executors)."""
+        return {k: sum(g.counts[k] for g in self._graphs)
+                for k in ("replays", "captures", "eager")}
+
+    def _update_carry(self, step, out, segments, index):
         """The carry update, in place, and for a sink that takes commits
         the start of the carry's copy to the host, from THIS step's
         state: the whole carry for a resumable sink (the carry a commit
@@ -977,8 +1082,8 @@ class JobStepper:
                 torch.cuda.current_stream(self.device).wait_event(
                     self._carry_read)
                 self._carry_read = None
-            self._agg_state = self._agg_fn(self._agg_state, out, cmask,
-                                           segments, rows)
+            self._agg_state = self._agg_fn(self._agg_state, out, segments,
+                                           index, self._graphs[0])
             if self._commit is None:
                 tensors, base = {}, None
             elif self._commit == "all":
@@ -1160,6 +1265,7 @@ class JobStepper:
         self._closed = True
         self._inflight.clear()
         self._h2d, self._d2h, self._carry_read = [], None, None
+        self._graphs = []
         self._agg_state = self._step_fns = self._agg_fn = None
         first: BaseException | None = None
         for release in ((self._stream.close if self._stream is not None

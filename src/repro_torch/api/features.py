@@ -29,6 +29,7 @@ impulsive: ``ragged=True``, see :class:`FeatureSpec`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Sequence
 
 import numpy as np
@@ -40,6 +41,7 @@ from repro_torch.core.params import DepamParams
 from repro_torch.core.tol import band_matrix as make_band_matrix
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import dequantize
+from .graphs import StepGraphs
 
 
 class FeatureContext:
@@ -50,9 +52,16 @@ class FeatureContext:
     per-record decode-scale sidecar ``scales`` (None for float32).  Every
     op gets that one pair and ``kernel=use_kernels``, and
     ``kernels.ops`` picks kernel or plain and dequantizes where its
-    route needs it.  The intermediates (Welch PSD, per-frame PSD, frame
-    SPL and peak bins, detected events) are computed lazily and cached,
+    route needs it.  The intermediates (Welch PSD, per-frame PSD, the
+    frame statistics, detected events) are computed lazily and cached,
     so N features selecting one compute it exactly once.
+
+    The frame statistics (:data:`FRAME_STATS`: the dB spectrogram, the
+    spectrum percentiles, the frame SPL and peak bins) are one chain of
+    ``graphs`` (the job's :class:`~repro_torch.api.graphs.StepGraphs`)
+    over the per-frame PSD: the first request of a step computes every
+    statistic the job's features read, as ``graphs.uses`` recorded them
+    in the job's first step, where each is computed alone as asked.
     ``ctx.records`` is the float32 waveform, dequantized lazily
     (bitwise-equal to the host decode) only for features that need the
     waveform itself.
@@ -60,11 +69,13 @@ class FeatureContext:
 
     def __init__(self, records: torch.Tensor, params: DepamParams,
                  use_kernels: bool, consts: dict[str, dict],
-                 scales: torch.Tensor | None = None):
+                 scales: torch.Tensor | None = None,
+                 graphs: StepGraphs | None = None):
         self.payload = records
         self.scales = scales
         self.params = params
         self.use_kernels = use_kernels
+        self.graphs = graphs or StepGraphs()
         self._consts = consts
         self._cache: dict[str, torch.Tensor] = {}
 
@@ -99,32 +110,45 @@ class FeatureContext:
         """(batch, n_frames, n_bins) per-frame PSD (the spectrogram)."""
         return self._psd("frame_psd", ops.frame_psd)
 
+    def _frame_stat(self, name: str) -> torch.Tensor:
+        if name not in self._cache:
+            uses = self.graphs.uses.setdefault("frame_stats", [])
+            if name in uses:
+                names = tuple(uses)
+                self._cache.update(zip(names, self.graphs.run(
+                    "frame_stats", functools.partial(
+                        frame_stats, p=self.params, names=names),
+                    (self.frame_psd,), names)))
+            else:
+                db = self.frame_db if name == "percentiles" else None
+                uses.append(name)
+                self._cache[name] = frame_stats(
+                    self.frame_psd, self.params, (name,), db)[0]
+        return self._cache[name]
+
     @property
     def frame_db(self) -> torch.Tensor:
         """(batch, n_frames, n_bins) per-frame PSD in dB (percentiles
         and spd share it)."""
-        if "frame_db" not in self._cache:
-            self._cache["frame_db"] = spectra.db(self.frame_psd,
-                                                 self.params)
-        return self._cache["frame_db"]
+        return self._frame_stat("frame_db")
+
+    @property
+    def percentiles(self) -> torch.Tensor:
+        """(batch, n_pct, n_bins) :data:`SPECTRUM_PERCENTILES` of the dB
+        spectrogram along frames, per bin."""
+        return self._frame_stat("percentiles")
 
     @property
     def frame_spl(self) -> torch.Tensor:
         """(batch, n_frames) wideband SPL per analysis frame, dB — the
         trace detection scans."""
-        if "frame_spl" not in self._cache:
-            power = torch.sum(self.frame_psd, dim=-1) * self.params.df
-            self._cache["frame_spl"] = spectra.db(power, self.params)
-        return self._cache["frame_spl"]
+        return self._frame_stat("frame_spl")
 
     @property
     def frame_peak_bin(self) -> torch.Tensor:
         """(batch, n_frames) int32 argmax PSD bin per frame (the first
         maximum, as ``jnp.argmax``)."""
-        if "frame_peak_bin" not in self._cache:
-            self._cache["frame_peak_bin"] = torch.argmax(
-                self.frame_psd, dim=-1).to(torch.int32)
-        return self._cache["frame_peak_bin"]
+        return self._frame_stat("frame_peak_bin")
 
     @property
     def events(self) -> tuple[torch.Tensor, torch.Tensor]:
@@ -137,6 +161,58 @@ class FeatureContext:
                 self.frame_spl, self.frame_peak_bin, self.params,
                 kernel=self.use_kernels)
         return self._cache["events"]
+
+
+# pypam-style soundscape statistics: per-record percentiles of the frame
+# spectrogram (dB), per frequency bin.
+SPECTRUM_PERCENTILES = (1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0)
+
+FRAME_STATS = ("frame_db", "percentiles", "frame_spl", "frame_peak_bin")
+
+
+def spectrum_percentiles(frame_db: torch.Tensor) -> torch.Tensor:
+    """numpy's (and ``jnp.percentile``'s) default ``linear`` method,
+    written out over one sort along the frame axis: ``torch.quantile``
+    refuses inputs above 2**24 elements, which a step's spectrogram
+    reaches.  The interpolation positions are host-side constants."""
+    srt = torch.sort(frame_db, dim=-2).values       # (batch, F, n_bins)
+    n = srt.shape[-2]
+    out = []
+    for q in SPECTRUM_PERCENTILES:
+        pos = q / 100.0 * (n - 1)
+        lo = int(np.floor(pos))
+        hi = min(lo + 1, n - 1)
+        t = pos - lo
+        a, b = srt[:, lo], srt[:, hi]
+        diff = b - a
+        # numpy's _lerp: from the nearer end, so t = 0 and t = 1 are exact
+        out.append(a + diff * t if t < 0.5 else b - diff * (1.0 - t))
+    return torch.stack(out, dim=1)                  # (batch, n_pct, n_bins)
+
+
+def frame_stats(frame_psd: torch.Tensor, p: DepamParams,
+                names: tuple[str, ...],
+                db: torch.Tensor | None = None) -> tuple:
+    """The frame statistics ``names`` (of :data:`FRAME_STATS`) of a
+    ``(batch, n_frames, n_bins)`` per-frame PSD, in that order; ``db``
+    is the dB spectrogram where the caller has it."""
+    if db is None and {"frame_db", "percentiles"} & set(names):
+        db = spectra.db(frame_psd, p)
+    out = []
+    for name in names:
+        if name == "frame_db":
+            out.append(db)
+        elif name == "percentiles":
+            out.append(spectrum_percentiles(db))
+        elif name == "frame_spl":
+            power = torch.sum(frame_psd, dim=-1) * p.df
+            out.append(spectra.db(power, p))
+        elif name == "frame_peak_bin":
+            out.append(torch.argmax(frame_psd, dim=-1).to(torch.int32))
+        else:
+            raise KeyError(f"unknown frame statistic {name!r}; "
+                           f"known: {FRAME_STATS}")
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------
@@ -422,35 +498,10 @@ register(FeatureSpec(
     doc="Third-octave levels per record, dB (IEC 61260 base-10 bands)."))
 
 
-# pypam-style soundscape statistics: per-record percentiles of the frame
-# spectrogram (dB), per frequency bin.
-SPECTRUM_PERCENTILES = (1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0)
-
-
-def _percentiles_compute(ctx: FeatureContext) -> torch.Tensor:
-    """numpy's (and ``jnp.percentile``'s) default ``linear`` method,
-    written out over one sort along the frame axis: ``torch.quantile``
-    refuses inputs above 2**24 elements, which a step's spectrogram
-    reaches.  The interpolation positions are host-side constants."""
-    srt = torch.sort(ctx.frame_db, dim=-2).values   # (batch, F, n_bins)
-    n = srt.shape[-2]
-    out = []
-    for q in SPECTRUM_PERCENTILES:
-        pos = q / 100.0 * (n - 1)
-        lo = int(np.floor(pos))
-        hi = min(lo + 1, n - 1)
-        t = pos - lo
-        a, b = srt[:, lo], srt[:, hi]
-        diff = b - a
-        # numpy's _lerp: from the nearer end, so t = 0 and t = 1 are exact
-        out.append(a + diff * t if t < 0.5 else b - diff * (1.0 - t))
-    return torch.stack(out, dim=1)                  # (batch, n_pct, n_bins)
-
-
 register(FeatureSpec(
     name="percentiles",
     shape=lambda m, p: (len(SPECTRUM_PERCENTILES), p.n_bins),
-    compute=_percentiles_compute,
+    compute=lambda ctx: ctx.percentiles,
     fill=-float("inf"),
     doc="Spectrum percentile levels per record (dB), pypam-style."))
 

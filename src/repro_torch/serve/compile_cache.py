@@ -19,9 +19,11 @@ Compiler` seam, which is exactly what determines the function:
 
 Sharing is safe because neither function keeps per-job state: the step
 closes over read-only device constants and builds a fresh
-``FeatureContext`` per call, and the carry update is a pure function of
-``(state, outputs, mask, segments, rows)`` returning new tensors.  All
-per-job state (carry, staging slots, streams) lives on each tenant's
+``FeatureContext`` per call, and the carry update writes, in place, the
+carry it is handed with ``(state, outputs, segments, index, graphs)``.
+All per-job state (carry, staging slots, streams, and the CUDA graphs of
+the step's chains with their static buffers, which the stepper hands to
+both functions on each call) lives on each tenant's
 :class:`~repro_torch.api.engine.JobStepper`.
 
 One difference from the reference's cache (``repro.serve.

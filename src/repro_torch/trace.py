@@ -162,14 +162,16 @@ def begin(name: str, t_ns: int | None = None, **attrs) -> None:
     _push(_Open(name, attrs), t_ns)
 
 
-def end(t_ns: int | None = None) -> None:
-    """Close the innermost span this thread opened with ``begin``."""
+def end(t_ns: int | None = None, **attrs) -> None:
+    """Close the innermost span this thread opened with ``begin``,
+    adding ``attrs`` to it."""
     if not active:
         return
     stack = _stack()
     if stack:
-        _close(stack.pop(), time.perf_counter_ns() if t_ns is None
-               else t_ns)
+        s = stack.pop()
+        s.attrs.update(attrs)
+        _close(s, time.perf_counter_ns() if t_ns is None else t_ns)
 
 
 def clock_pair() -> tuple[int, int]:

@@ -2,8 +2,12 @@
 update it replaced, bit for bit, and what reaches the host.
 
   * ``compile_reduce_update`` writes only the rows of the windows a step
-    hits, in place.  ``full_size_update`` below is the update it
-    replaced, kept here as the oracle: each step built an identity
+    hits, in place: gathered by device-side window ids and scattered
+    back, with the bits of a loop over the hit windows' row views
+    (aligned and straddling steps, one shard and four, fresh and
+    resumed), and of the full-size update it replaced.
+    ``full_size_update`` below is that update, kept here as an
+    oracle: each step built an identity
     partial of the carry's whole size, merged the shards' partials into
     it, and returned a new carry.  Both run the same random steps (sum,
     ksum with -0.0 and zero partials, min, max; int32 counts) over one
@@ -112,13 +116,15 @@ def _random_step(rng, step, n_shards, chunk, wins):
            ).reshape(lead) % M.n_records
     ids = {k: w.ids(idx, M) for k, w in wins.items()}
     segments, rows = engine._window_rows(ids)
+    index = engine._carry_index(rows, mask)
     w = torch.from_numpy(welch)
     # the extrema see no -0.0: a tie of 0.0 with -0.0 is settled by
     # where the element sits in the CPU's vector lanes, in the full-size
     # update as well, and no PSD (a sum of squares) reaches -0.0
     out = {"welch": w, "ltsa": w, "minmax": w.abs(),
            "spd": torch.from_numpy(db)}
-    return out, torch.from_numpy(mask), segments, torch.from_numpy(rows)
+    return (out, torch.from_numpy(mask), segments, torch.from_numpy(rows),
+            torch.from_numpy(index))
 
 
 @pytest.mark.parametrize("resumed", [False, True], ids=["fresh", "resumed"])
@@ -136,20 +142,123 @@ def test_in_place_update_has_the_full_size_bits(n_shards, resumed):
     steps = [_random_step(rng, s, n_shards, 2, wins) for s in range(8)]
     if resumed:
         # a carry committed mid-way, with -0.0 in the Kahan companions
-        for out, mask, seg, rows in steps[:3]:
+        for out, mask, seg, rows, _ in steps[:3]:
             want = old(want, out, mask, seg, rows)
         for k in want:
             if k.endswith(":c"):
                 want[k][::2] = -0.0
         steps = steps[3:]
     got = {k: v.clone() for k, v in want.items()}
-    for out, mask, seg, rows in steps:
+    for out, mask, seg, rows, index in steps:
         want = old(want, out, mask, seg, rows)
-        same = new(got, out, mask, seg, rows)
+        same = new(got, out, seg, index)
         assert same is got
         assert set(got) == set(want)
         for k in want:
             assert torch.equal(_bits(got[k]), _bits(want[k])), k
+
+
+def per_window_update(bindings):
+    """The in-place update one window at a time: each hit window's row
+    (and Kahan companion) as a view of the carry, merged in place."""
+    combine = {"sum": torch.add, "ksum": torch.add, "min": torch.minimum,
+               "max": torch.maximum}
+
+    def update(state, out, mask, segments, rows):
+        fmask = mask.reshape(-1)
+        for b in bindings:
+            val = out[b.feature]
+            val = val.reshape((-1,) + tuple(val.shape[2:]))
+            contribs = b.red.update(val, fmask)
+            shard_runs = segments[b.wkey]
+            for f in b.fields:
+                c = contribs[f.name]
+                c = c.reshape((len(shard_runs), -1) + tuple(c.shape[1:]))
+                key = engine._sk(b, f.name)
+                for w, ranges in engine._window_hits(shard_runs):
+                    part = None
+                    for s, lo, hi in ranges:
+                        sel = c[s].index_select(0, rows[lo:hi])
+                        red = sel.sum(dim=0, dtype=c.dtype) \
+                            if f.merge in ("sum", "ksum") else \
+                            sel.amin(dim=0) if f.merge == "min" else \
+                            sel.amax(dim=0)
+                        part = red if part is None \
+                            else combine[f.merge](part, red)
+                    row = state[key][w]
+                    if f.merge == "ksum":
+                        comp = state[key + ":c"][w]
+                        y = part - comp
+                        t = row + y
+                        zero = part == 0
+                        torch.where(zero, comp, (t - row) - y, out=comp)
+                        torch.where(zero, row, t, out=row)
+                    elif f.merge == "sum":
+                        row.add_(part)
+                    else:
+                        combine[f.merge](row, part, out=row)
+        return state
+
+    return update
+
+
+KAHAN_LTSA = api.FeatureSpec(
+    name="kltsa", shape=None, compute=lambda ctx: ctx.welch,
+    reductions=(api.mean_reduction("kltsa", lambda m, p: p.n_bins,
+                                   kahan=True),))
+LONG = DatasetManifest(n_files=4, records_per_file=100,
+                       record_size=P.record_size, fs=P.fs, seed=5)
+
+
+@pytest.mark.parametrize("resumed", [False, True], ids=["fresh", "resumed"])
+@pytest.mark.parametrize("n_shards", [1, 4])
+@pytest.mark.parametrize("k", [0, 2, 4, 6], ids=lambda k: f"k{k}")
+def test_gathered_update_has_the_per_window_loop_bits(k, n_shards,
+                                                      resumed):
+    """Steps of 8 records a shard over 90-record windows, each shard's
+    records straddling a window edge with ``k`` of them before it (k = 0:
+    no edge), the windows moving on each step: the update that gathers
+    the hit windows' rows by device-side ids and scatters them back
+    gives the bits of the per-window loop, for sum, ksum, min, max and
+    int32 counts."""
+    specs = api.resolve_features(list(FEATURES) + [KAHAN_LTSA])
+    bindings, wins = engine.resolve_bindings(
+        specs, LONG, P, engine.Window("records", records=90))
+    assert {(f.merge, b.n_windows > 1) for b in bindings for f in b.fields} \
+        >= {("sum", True), ("ksum", True), ("min", True), ("max", True),
+            ("ksum", False)}
+    rng = np.random.default_rng(100 * k + n_shards)
+    want = engine._init_reduce_state(bindings, None, "cpu")
+    if resumed:
+        # a carry committed mid-way: rows already summed, -0.0 in the
+        # Kahan companions
+        for key, v in want.items():
+            if v.dtype == torch.int32:
+                v.copy_(torch.from_numpy(
+                    rng.integers(0, 50, tuple(v.shape), dtype=np.int32)))
+            elif key.endswith(":c"):
+                v.copy_(torch.from_numpy(rng.normal(
+                    0, 1e-7, tuple(v.shape)).astype(np.float32)))
+                v[::2] = -0.0
+            else:
+                v.copy_(torch.from_numpy(rng.gamma(
+                    2.0, 10.0, tuple(v.shape)).astype(np.float32)))
+    got = {key: v.clone() for key, v in want.items()}
+    old, new = per_window_update(bindings), \
+        engine.compile_reduce_update(bindings)
+    for step in range(3):
+        out, mask, _, _, _ = _random_step(rng, 0, n_shards, 8, wins)
+        out["kltsa"] = out["welch"]
+        # shard s straddles the edge of window 1 + 2s + step
+        idx = np.stack([(1 + 2 * s + step) * 90 - k + np.arange(8)
+                        for s in range(n_shards)])
+        segments, rows = engine._window_rows(
+            {key: w.ids(idx, LONG) for key, w in wins.items()})
+        index = torch.from_numpy(engine._carry_index(rows, mask.numpy()))
+        want = old(want, out, mask, segments, torch.from_numpy(rows))
+        assert new(got, out, segments, index) is got
+        for key in want:
+            assert torch.equal(_bits(got[key]), _bits(want[key])), key
 
 
 class RecordingStore(api.StoreSink):
