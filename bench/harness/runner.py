@@ -53,6 +53,7 @@ class Window:
     kernel_costs: dict          # kernel function -> summed cost.Cost
     extra: dict                 # the driver's own readings
     program: trace.Program | None = None    # the program's spans, traced
+    cards: tuple = ()           # a cell of several cards: their indices
 
 
 def leaked_modules() -> list[str]:
@@ -91,6 +92,12 @@ def card_limit() -> str:
         return "unknown"
 
 
+def job_cards(job) -> tuple[int, ...]:
+    """The indices of the CUDA cards the job's executors run on."""
+    return tuple(sorted({d.index for d in job.stepper.executors
+                         if d.type == "cuda"}))
+
+
 def run(workload: str, seed: int, seconds: float, traced: bool,
         device: str = "cuda", t_process: float | None = None,
         overrides: dict | None = None, fault=None,
@@ -102,7 +109,13 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
     ``fault`` is called with the driver's job before the window, to
     break the timed path in tests; ``inspect``, where given, receives
     the window and, where it asks with ``{"control": True}``, the
-    control's numbers on the same sample."""
+    control's numbers on the same sample.
+
+    A cell of several chips (its ``chips`` in ``BENCHMARK.json``) reads
+    every card its job runs on: each is synchronised and its peak reset
+    at the window's start, the result's peak is the fullest card's, and
+    the device block gives each card's peak and, traced, its busy and
+    idle share.  A cell of one chip reads the current card alone."""
     t_process = time.perf_counter() if t_process is None else t_process
     spec = discover.benchmark()
     cellspec = discover.cell(spec, workload)
@@ -113,6 +126,7 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
     limits = discover.limits(workload)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
+    cards = read = ()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_limit() if cuda else "cpu"
@@ -146,9 +160,12 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
             if tracer is not None:
                 tracer.enable()
             job.warm(1)             # the profiler's own first step
-        if cuda:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+        if cellspec["chips"] > 1:
+            cards = job_cards(job)
+        read = cards or ((dev,) if cuda else ())
+        for c in read:
+            torch.cuda.synchronize(c)
+            torch.cuda.reset_peak_memory_stats(c)
         kspans.total.clear()
         host0 = dict(st.host_seconds)
         first = tracer.snapshot() if tracer is not None else None
@@ -157,7 +174,8 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
         got = job.window(t0, seconds)
         program = None if tracer is None \
             else trace.Program.between(first, tracer.snapshot())
-        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        peaks = {c: torch.cuda.max_memory_allocated(c) for c in read}
+        peak = max(peaks.values()) if peaks else None
         summary = program_block = None
         if prof is not None:
             done, prof = prof, None
@@ -174,7 +192,8 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
         win = Window(steps=got["steps"], seconds=got["seconds"],
                      host={k: st.host_seconds[k] - host0[k] for k in host0},
                      trace=summary, kernel_costs=dict(kspans.total),
-                     extra=got.get("extra", {}), program=program)
+                     extra=got.get("extra", {}), program=program,
+                     cards=cards)
         st.close()
         kspans.uninstall(ops)
 
@@ -191,9 +210,9 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
         e2e = {"setup_s": setup_s,
                "peak_device_gib": None if peak is None else peak / 2 ** 30,
                **got["metrics"]}
-        return result_line(spec, workload, traced, win, e2e, peak, card,
+        return result_line(spec, workload, traced, win, e2e, peaks, card,
                            numbers, limits, correct, got["attempted"],
-                           got["failed"], dev, program_block)
+                           got["failed"], program_block)
     finally:
         if tracer is not None:
             tracer.disable()
@@ -204,8 +223,30 @@ def run(workload: str, seed: int, seconds: float, traced: bool,
             job.stepper.close()
 
 
-def result_line(spec, workload, traced, win, e2e, peak, card, numbers,
-                limits, correct, attempted, failed, dev,
+def device_block(kind: str, peaks: dict, summary, cards: tuple) -> dict:
+    """The result's ``device``: ``peaks`` maps each card read to its
+    peak bytes over the window; ``summary`` is the traced window's, or
+    None; ``cards``, where the cell spans several, adds each card's
+    readings and makes ``busy_s`` their mean."""
+    out = {"platform": "gpu", "kind": kind, "count": len(peaks),
+           "memory_peak_bytes": int(max(peaks.values()))}
+    busy = {c: summary.card_busy_s.get(c, 0.0) for c in cards} \
+        if summary is not None else {}
+    if summary is not None:
+        out["busy_s"] = sum(busy.values()) / len(busy) if cards \
+            else summary.busy_s
+        out["window_s"] = summary.window_s
+    if cards:
+        out["cards"] = [
+            {"index": c, "memory_peak_bytes": int(peaks[c]),
+             **({"busy_s": busy[c],
+                 "idle_pct": 100.0 * (1.0 - busy[c] / summary.window_s)}
+                if summary is not None else {})} for c in cards]
+    return out
+
+
+def result_line(spec, workload, traced, win, e2e, peaks, card, numbers,
+                limits, correct, attempted, failed,
                 program_block=None) -> dict:
     metrics = {}
     kind = "per_layer" if traced else "end_to_end"
@@ -216,13 +257,10 @@ def result_line(spec, workload, traced, win, e2e, peak, card, numbers,
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     out = {"correct": bool(correct), "attempted": int(attempted),
            "failed": int(failed), "metrics": metrics}
-    if dev.type == "cuda":
-        out["device"] = {"platform": "gpu",
-                         "kind": torch.cuda.get_device_name(dev),
-                         "count": 1, "memory_peak_bytes": int(peak)}
-        if traced and win.trace is not None:
-            out["device"]["busy_s"] = win.trace.busy_s
-            out["device"]["window_s"] = win.trace.window_s
+    if peaks:
+        out["device"] = device_block(
+            torch.cuda.get_device_name(next(iter(peaks))), peaks,
+            win.trace if traced else None, win.cards)
     if traced and win.trace is not None:
         out["breakdown"] = trace.breakdown(win.trace)
     out["card"] = card

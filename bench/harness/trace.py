@@ -8,7 +8,8 @@ the program is edited.  With tracing off every span is a no-op.
 From the trace of one window it takes:
 
   * the device operations (kernels, copies, fills) and the union of
-    their intervals: ``busy_s`` over ``window_s``;
+    their intervals: ``busy_s`` over ``window_s``, over every card
+    together and, by the card each ran on, ``card_busy_s``;
   * each kernel function's device time: every device operation whose
     launch is linked, through the profiler's correlation ids, to an op
     or span that lies inside that function's span on the host;
@@ -110,6 +111,7 @@ class Event:
     corr: int
     linked: int
     thread: int
+    device: int = -1    # the card of a device operation
 
 
 def _activity(e, span_names) -> str:
@@ -143,7 +145,8 @@ def raw_events(prof, span_names=()) -> list[Event]:
     for e in prof.profiler.kineto_results.events():
         out.append(Event(e.name(), _activity(e, set(span_names)),
                          e.start_ns(), e.end_ns(), e.correlation_id(),
-                         e.linked_correlation_id(), e.start_thread_id()))
+                         e.linked_correlation_id(), e.start_thread_id(),
+                         e.device_index()))
     return out
 
 
@@ -157,6 +160,8 @@ class Summary:
     idle_by_label: dict         # innermost driver span -> idle seconds
     window_ns: tuple            # the window's bounds, profiler clock
     busy_ns: list               # merged busy intervals [a, b] within it
+    card_busy_s: dict = dataclasses.field(default_factory=dict)
+    # card index -> seconds in which an operation ran on that card
 
     def idle_ns(self) -> list:
         """The window's intervals with no device operation, ascending."""
@@ -335,6 +340,9 @@ def summarize(events: list[Event], kernel_names) -> Summary | None:
         return None
     clipped = [(max(e.start, ws), min(e.end, we)) for e in dev]
     busy, merged = _union(clipped)
+    by_card = collections.defaultdict(list)
+    for e, iv in zip(dev, clipped):
+        by_card[e.device].append(iv)
 
     op_s = collections.Counter()
     for e, (a, b) in zip(dev, clipped):
@@ -383,7 +391,9 @@ def summarize(events: list[Event], kernel_names) -> Summary | None:
     out = Summary(window_s=(we - ws) / 1e9, busy_s=busy / 1e9,
                   device_ops=len(dev), op_seconds=dict(op_s),
                   span_device_s=dict(span_s), idle_by_label={},
-                  window_ns=(ws, we), busy_ns=merged)
+                  window_ns=(ws, we), busy_ns=merged,
+                  card_busy_s={c: _union(v)[0] / 1e9
+                               for c, v in sorted(by_card.items())})
     # idle on the device by the innermost range open on the driving
     # thread, split by overlap (ranges on one thread nest)
     driver_spans = [(e.start, e.end, e.name) for e in host

@@ -97,3 +97,5 @@ def _faults(cell: str) -> list:
 def test_fault_is_not_correct(name, fault, monkeypatch):
     out = bench_tiny.run(name, fault=lambda job: fault(job, monkeypatch))
     assert not out["correct"], out["checks"]
+    if fault is _delivered_twice:
+        assert out["failed"] > 0
